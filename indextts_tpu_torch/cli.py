@@ -1,0 +1,58 @@
+"""Command-line synthesis with the PyTorch port (reference surface:
+indextts/cli.py:7-59).
+
+    python -m indextts_tpu_torch.cli "text" -v prompt.wav -o out.wav \
+        --model_dir checkpoints_test --num_beams 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="indextts", description="IndexTTS synthesis (PyTorch)")
+    p.add_argument("text", help="text to synthesize")
+    p.add_argument("-v", "--voice", required=True, help="prompt/reference WAV")
+    p.add_argument("-o", "--output_path", default="gen.wav")
+    p.add_argument("-c", "--config", default=None, help="config.yaml path")
+    p.add_argument("--model_dir", default="checkpoints")
+    p.add_argument("-d", "--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--fp16", action="store_true", default=True)
+    p.add_argument("--no-fp16", dest="fp16", action="store_false")
+    p.add_argument("-f", "--force", action="store_true", help="overwrite output")
+    p.add_argument("--speaker_id", default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--num_beams", type=int, default=None,
+                   help="the port decodes with num_beams=1 only (beam decode: "
+                        "ROADMAP A8)")
+    p.add_argument("--cfg_scale", type=float, default=None,
+                   help="classifier-free guidance scale (1.0 = off; other values: "
+                        "ROADMAP A11)")
+    args = p.parse_args(argv)
+
+    if os.path.exists(args.output_path) and not args.force:
+        print(f"error: {args.output_path} exists (use -f to overwrite)", file=sys.stderr)
+        return 1
+    if not os.path.exists(args.voice):
+        print(f"error: voice file {args.voice} not found", file=sys.stderr)
+        return 1
+    cfg_path = args.config or os.path.join(args.model_dir, "config.yaml")
+
+    from indextts_tpu_torch.engine import IndexTTS
+
+    tts = IndexTTS(cfg_path=cfg_path, model_dir=args.model_dir, is_fp16=args.fp16,
+                   device=args.device, seed=args.seed)
+    gen = {}
+    if args.num_beams is not None:
+        gen["num_beams"] = args.num_beams
+    if args.cfg_scale is not None:
+        gen["cfg_scale"] = args.cfg_scale
+    tts.infer(args.voice, args.text, args.output_path, speaker_id=args.speaker_id, **gen)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

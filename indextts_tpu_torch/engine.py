@@ -1,0 +1,319 @@
+"""IndexTTS engine: the public inference surface of the port (counterpart of
+indextts_tpu/engine.py).
+
+Single-utterance synthesis, sentence by sentence (reference infer.py:
+779-917): prompt mel -> conditioning latents -> sampling decode of mel codes
+-> long-silence compression -> teacher-forced latent re-forward -> BigVGAN
+with ECAPA speaker conditioning -> int16 PCM.  Runs on `cuda` unless the
+caller passes `device="cpu"`; with no GPU and no explicit CPU it raises.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from indextts_tpu_torch.config import Config
+from indextts_tpu_torch.io import from_jax
+from indextts_tpu_torch.models import bigvgan as bigvgan_model
+from indextts_tpu_torch.models import unified_voice as uv
+from indextts_tpu_torch.ops.mel import MelSpectrogramFeatures
+from indextts_tpu_torch.ops.sampling import mix_seed
+from indextts_tpu_torch.utils import audio as audio_io
+from indextts_tpu_torch.utils.textnorm import TextNormalizer
+from indextts_tpu_torch.utils.tokenizer import TextTokenizer
+
+
+def _resolve_dtype(name: str) -> torch.dtype:
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if name in ("fp16", "float16"):
+        return torch.float16
+    return torch.float32
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def remove_long_silence(codes: np.ndarray, code_lens: np.ndarray,
+                        silent_token: int = 52, max_consecutive: int = 30,
+                        keep: int = 10, stop_token: int = 8193
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Post-decode silence compression (infer.py:446-497): if a sequence has
+    more than `max_consecutive` silent tokens overall, runs of silence are
+    clipped to `keep` frames."""
+    out_list: List[np.ndarray] = []
+    for i in range(codes.shape[0]):
+        code = codes[i, : int(code_lens[i])]
+        if np.sum(code == silent_token) > max_consecutive:
+            kept: List[int] = []
+            run = 0
+            for tok in code:
+                if tok != silent_token:
+                    kept.append(tok)
+                    run = 0
+                elif run < keep:
+                    kept.append(tok)
+                    run += 1
+            out_list.append(np.asarray(kept, dtype=codes.dtype))
+        else:
+            out_list.append(code)
+    new_lens = np.asarray([len(c) for c in out_list], dtype=np.int64)
+    max_len = max(1, int(new_lens.max()))
+    out = np.full((codes.shape[0], max_len), stop_token, dtype=codes.dtype)
+    for i, c in enumerate(out_list):
+        out[i, : len(c)] = c
+    return out, new_lens
+
+
+class IndexTTS:
+    """Zero-shot TTS engine (reference surface: indextts/infer.py:184)."""
+
+    def __init__(self, cfg_path: Optional[str] = "checkpoints/config.yaml",
+                 model_dir: str = "checkpoints", is_fp16: bool = True,
+                 device: Optional[str] = None,
+                 precision_config: Optional[Dict[str, Any]] = None,
+                 seed: Optional[int] = None, config: Optional[Config] = None):
+        """`config` takes the place of `cfg_path` (no YAML needed); with
+        neither, the dataclass defaults (the flagship) apply."""
+        self.device = torch.device(device or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("IndexTTS: CUDA is not available; pass device='cpu' to "
+                               "run on the CPU")
+        if config is None:
+            config = (Config.load(cfg_path) if cfg_path and os.path.exists(cfg_path)
+                      else Config())
+        self.cfg = config
+        self.model_dir = model_dir
+        self.model_version = self.cfg.version
+
+        # precision precedence, PER KEY: runtime args > config_inference.yaml
+        # > config.yaml [inference] > legacy is_fp16 (infer.py:213-306)
+        file_cfg: Dict[str, Any] = {}
+        inf_path = os.path.join(model_dir, "config_inference.yaml")
+        if os.path.exists(inf_path):
+            import yaml
+
+            with open(inf_path) as f:
+                file_cfg = (yaml.safe_load(f) or {}).get("inference") or {}
+        base = {"gpt": self.cfg.inference.gpt, "vocoder": self.cfg.inference.vocoder,
+                "cfg_scale": self.cfg.inference.cfg_scale,
+                "kv_cache": self.cfg.inference.kv_cache,
+                "quantization": {"enabled": self.cfg.inference.quantization.enabled}}
+        runtime = dict(precision_config) if precision_config else {}
+
+        def pick(key, default=None):
+            for src in (runtime, file_cfg, base):
+                if src.get(key) is not None:
+                    return src[key]
+            return default
+
+        legacy = "bf16" if is_fp16 else "fp32"
+        gpt_prec = str(pick("gpt", legacy))
+        voc_prec = str(pick("vocoder", legacy))
+        quant = pick("quantization", {}) or {}
+        if bool(quant.get("enabled", False)) or gpt_prec in ("fp8", "int8", "int4"):
+            raise NotImplementedError("quantized weight tiers are ROADMAP item A10")
+        if str(pick("kv_cache", "auto")) == "fp8":
+            raise NotImplementedError("the fp8 KV cache is ROADMAP item A10")
+        self.gpt_dtype = _resolve_dtype(gpt_prec)
+        self.vocoder_dtype = _resolve_dtype(voc_prec)
+        self.cfg_scale = float(pick("cfg_scale", 1.0))
+        self.stop_mel_token = self.cfg.gpt.stop_mel_token
+        self._rng_seed = seed if seed is not None else 0
+
+        # --- models: random weights until checkpoint loading is ported ----
+        gpt_path = os.path.join(model_dir, self.cfg.gpt_checkpoint)
+        bv_path = os.path.join(model_dir, self.cfg.bigvgan_checkpoint)
+        for path in (gpt_path, bv_path):
+            if os.path.exists(path):
+                raise NotImplementedError(
+                    f"{path}: loading reference checkpoints is ROADMAP item A1b")
+        warnings.warn(f"no checkpoints in {model_dir}; random weights")
+        gen = lambda s: torch.Generator(device=self.device).manual_seed(s)  # noqa: E731
+        self.gpt_params = uv.init_params(self.cfg.gpt, gen(0), self.gpt_dtype, self.device)
+        self.bigvgan_params = bigvgan_model.init_params(
+            self.cfg.bigvgan, gen(1), self.vocoder_dtype, self.device)
+
+        # --- text front end ---------------------------------------------
+        self.normalizer = TextNormalizer()
+        self.normalizer.load()
+        self.tokenizer = TextTokenizer(os.path.join(model_dir, self.cfg.dataset.bpe_model),
+                                       self.normalizer)
+
+        self.cache_audio_prompt: Optional[str] = None
+        self.cache_cond_mel: Optional[torch.Tensor] = None
+        mel = self.cfg.dataset.mel
+        self._mel_extractor = MelSpectrogramFeatures(
+            sample_rate=mel.sample_rate, n_fft=mel.n_fft, hop_length=mel.hop_length,
+            win_length=mel.win_length, n_mels=mel.n_mels)
+        self.last_stats: Dict[str, Any] = {}
+
+    def load_numpy_params(self, gpt_tree: Any, bigvgan_tree: Any) -> None:
+        """Take the JAX package's parameter trees, as numpy arrays, for both
+        models (cast to this engine's precisions)."""
+        self.gpt_params = from_jax.gpt_params_from_numpy(
+            gpt_tree, self.cfg.gpt, self.gpt_dtype, self.device)
+        self.bigvgan_params = from_jax.bigvgan_params_from_numpy(
+            bigvgan_tree, self.cfg.bigvgan, self.vocoder_dtype, self.device)
+
+    # -- helpers ----------------------------------------------------------
+
+    def _prompt_mel(self, audio_prompt: str) -> torch.Tensor:
+        if self.cache_cond_mel is None or self.cache_audio_prompt != audio_prompt:
+            wav = audio_io.load_prompt_audio(audio_prompt, self.cfg.dataset.sample_rate)
+            self.cache_cond_mel = self._mel_extractor(
+                torch.as_tensor(wav, device=self.device))
+            self.cache_audio_prompt = audio_prompt
+        return self.cache_cond_mel
+
+    def _conditioning(self, cond_mel: torch.Tensor) -> torch.Tensor:
+        lengths = torch.full((cond_mel.shape[0],), cond_mel.shape[-1], device=self.device)
+        return uv.get_conditioning(self.gpt_params, self.cfg.gpt,
+                                   cond_mel.to(self.gpt_dtype), lengths)
+
+    def _decode_bucket(self, cond_latent, token_lists, generator,
+                       generation: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Decode one sentence; text left-padded to a multiple of 16."""
+        prep = uv.prepare_text_prompt(token_lists, self.cfg.gpt.start_text_token,
+                                      self.cfg.gpt.stop_text_token)
+        width = _round_up(prep.text_tokens.shape[1], 16)
+        pad = width - prep.text_tokens.shape[1]
+        tokens = np.pad(prep.text_tokens, ((0, 0), (pad, 0)))
+        mask = np.pad(prep.attn_text, ((0, 0), (pad, 0)))
+        # reference decode default: num_beams=3 (infer.py:633); a cfg_scale
+        # without an explicit num_beams switches to sampling
+        cfg_scale = float(generation.get("cfg_scale", self.cfg_scale))
+        if cfg_scale != 1.0 and "num_beams" not in generation:
+            num_beams = 1
+        else:
+            num_beams = int(generation.get("num_beams", 3))
+        if num_beams > 1:
+            raise NotImplementedError(
+                f"num_beams={num_beams}: beam decode is ROADMAP item A8; pass num_beams=1")
+        result = uv.inference_speech(
+            self.gpt_params, self.cfg.gpt, cond_latent,
+            torch.as_tensor(tokens, device=self.device),
+            torch.as_tensor(mask, device=self.device), generator,
+            # the mel position table caps the generation budget
+            max_new=min(int(generation.get("max_mel_tokens", 600)),
+                        self.cfg.gpt.max_mel_tokens),
+            temperature=float(generation.get("temperature", 1.0)),
+            top_k=int(generation.get("top_k", 30)),
+            top_p=float(generation.get("top_p", 0.8)),
+            repetition_penalty=float(generation.get("repetition_penalty", 10.0)),
+            do_sample=bool(generation.get("do_sample", True)),
+            typical_sampling=bool(generation.get("typical_sampling", False)),
+            typical_mass=float(generation.get("typical_mass", 0.9)),
+            cache_dtype=self.gpt_dtype, cfg_scale=cfg_scale)
+        return result.codes.cpu().numpy(), result.lengths.cpu().numpy(), result.steps
+
+    def _latents(self, cond_latent, text_tokens: np.ndarray, text_len: int,
+                 codes: np.ndarray, code_len: int) -> torch.Tensor:
+        """Teacher-forced re-forward for one sentence (infer.py:864-875), with
+        text padded to 16 and codes to 64; the latent keeps the padded length
+        (the pad bleeds into the tail, PARITY.md) and the caller trims the
+        wav to code_len * 1024 samples."""
+        code_len = min(code_len, self.cfg.gpt.max_mel_tokens)
+        width = min(_round_up(max(1, code_len), 64), self.cfg.gpt.max_mel_tokens)
+        twidth = max(min(_round_up(max(1, text_len), 16), self.cfg.gpt.max_text_tokens),
+                     text_len)
+        codes_p = np.full((1, width), self.stop_mel_token, dtype=np.int64)
+        codes_p[0, :code_len] = codes[:code_len]
+        text_p = np.zeros((1, twidth), dtype=np.int64)
+        text_p[0, :text_len] = text_tokens[:text_len]
+        dev = self.device
+        lat = uv.latent_forward(
+            self.gpt_params, self.cfg.gpt, cond_latent, torch.as_tensor(text_p, device=dev),
+            torch.tensor([text_len], device=dev), torch.as_tensor(codes_p, device=dev),
+            torch.tensor([code_len], device=dev))
+        return lat[0]  # [width, D], valid prefix = code_len
+
+    def _vocode(self, latent: torch.Tensor, mel_ref: torch.Tensor) -> torch.Tensor:
+        """BigVGAN then int16 PCM on the device: scale in fp32, clip, and
+        truncate toward zero on the cast."""
+        wav = bigvgan_model.forward(self.bigvgan_params, latent.to(self.vocoder_dtype),
+                                    mel_ref.to(self.vocoder_dtype), self.cfg.bigvgan)
+        return torch.clamp(32767.0 * wav.float(), -32767.0, 32767.0).to(torch.int16)
+
+    # -- public API -------------------------------------------------------
+
+    def infer(self, audio_prompt: str, text: str, output_path: Optional[str],
+              verbose: bool = False, max_text_tokens_per_sentence: int = 120,
+              speaker_id: Optional[str] = None, seed: Optional[int] = None,
+              **generation_kwargs):
+        """Per-sentence synthesis (reference: infer.py:779-917).  Sentence i
+        samples from a generator seeded with mix_seed(seed, i)."""
+        if speaker_id is not None:
+            raise NotImplementedError("speaker_id needs checkpoint speaker data "
+                                      "(ROADMAP item A1b)")
+        if not audio_prompt:
+            raise ValueError("an audio prompt is required")
+        start_time = time.perf_counter()
+        cond_mel = self._prompt_mel(audio_prompt)
+        cond_latent = self._conditioning(cond_mel)
+        mel_ref = cond_mel.transpose(1, 2)                  # vocoder's [1, T, n_mels]
+        sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
+                                                   max_text_tokens_per_sentence)
+        gen = dict(generation_kwargs)
+        base_seed = self._rng_seed if seed is None else seed
+        requested_cap = int(gen.get("max_mel_tokens", 600))
+        effective_cap = min(requested_cap, self.cfg.gpt.max_mel_tokens)
+        if requested_cap > self.cfg.gpt.max_mel_tokens:
+            warnings.warn(f"max_mel_tokens={requested_cap} exceeds the model's position "
+                          f"table ({self.cfg.gpt.max_mel_tokens}); generation is capped "
+                          "there", RuntimeWarning)
+        phase = {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0, "bigvgan_time": 0.0}
+        chunks: List[np.ndarray] = []
+        decode_steps = 0
+        code_lens: List[int] = []
+        has_warned = False
+        for si, sent in enumerate(sentences):
+            ids = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int32)
+            t0 = time.perf_counter()
+            generator = torch.Generator(device=self.device).manual_seed(
+                mix_seed(base_seed, si))
+            codes, lens, steps = self._decode_bucket(cond_latent, [ids], generator, gen)
+            codes, lens = remove_long_silence(codes, lens, stop_token=self.stop_mel_token)
+            phase["gpt_gen_time"] += time.perf_counter() - t0
+            decode_steps += steps
+            if not has_warned and int(lens[0]) >= effective_cap:
+                warnings.warn("generation reached max_mel_tokens; consider shorter "
+                              "sentences", RuntimeWarning)
+                has_warned = True
+            code_len = int(lens[0])
+            code_lens.append(code_len)
+            t0 = time.perf_counter()
+            latent = self._latents(cond_latent, ids, len(ids), codes[0], code_len)
+            if self.device.type == "cuda":  # time the re-forward, not its enqueue
+                torch.cuda.synchronize(self.device)
+            phase["gpt_forward_time"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            wav = self._vocode(latent[None], mel_ref)
+            n_samples = code_len * self.cfg.gpt.mel_length_compression
+            chunks.append(wav[0, 0, :n_samples].cpu().numpy())
+            phase["bigvgan_time"] += time.perf_counter() - t0
+        sampling_rate = self.cfg.dataset.sample_rate
+        wav = np.concatenate(chunks) if chunks else np.zeros(1, np.int16)
+        total = time.perf_counter() - start_time
+        wav_seconds = sum(len(c) for c in chunks) / sampling_rate
+        self.last_stats = {"rtf": total / max(wav_seconds, 1e-9), "total_s": total,
+                           "wav_seconds": wav_seconds, "decode_steps": decode_steps,
+                           "code_lens": code_lens, **phase}
+        s = self.last_stats
+        if verbose:
+            print(f">> {len(sentences)} sentences, {decode_steps} decode steps")
+        print(f">> total {s['total_s']:.2f}s  (RTF: {s['rtf']:.4f})")
+        print(f"   gpt_gen {s['gpt_gen_time']:.2f}s  gpt_fwd {s['gpt_forward_time']:.2f}s  "
+              f"vocoder {s['bigvgan_time']:.2f}s")
+        if output_path:
+            audio_io.write_wav(output_path, wav, sampling_rate)
+            print(f">> saved: {output_path}")
+            return output_path
+        return sampling_rate, wav.astype(np.int16)[None, :].T

@@ -1,0 +1,188 @@
+"""GPT-2 trunk as plain functions over tensors (counterpart of
+indextts_tpu/models/gpt2.py).
+
+Numerically the HF ``GPT2Model`` the reference builds (indextts/gpt/
+model.py:263-286: wpe nulled, wte external, gelu_new, LayerNorm eps 1e-5).
+Parameters keep the JAX package's stacked layout: every block tensor has
+the layers on a leading axis, and matrices are K-major, e.g.
+``blocks.attn.qkv_w`` is [L, D, 3D].  The single-row decode kernel reads one
+contiguous per-layer slab of each, and weights carry across as a plain copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+NEG_INF = -1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Size:
+    layers: int
+    dim: int
+    heads: int
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """HF "gelu_new" (tanh approximation)."""
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * torch.pow(x, 3.0))))
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 whatever the input type; returns x's type."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def tree_index(tree, i: int):
+    """Layer i of a tree of stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_gpt2_params(size: GPT2Size, generator: torch.Generator,
+                     dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+    """GPT-2's random init (normal 0.02, zero biases, residual projections
+    scaled by 1/sqrt(2L))."""
+    L, D = size.layers, size.dim
+    std = 0.02
+    proj_std = std / math.sqrt(2 * L)
+
+    def nrm(shape, s):
+        return (torch.randn(shape, generator=generator, device=device) * s).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "blocks": {
+            "ln_1": {"scale": ones(L, D), "bias": zeros(L, D)},
+            "attn": {"qkv_w": nrm((L, D, 3 * D), std), "qkv_b": zeros(L, 3 * D),
+                     "proj_w": nrm((L, D, D), proj_std), "proj_b": zeros(L, D)},
+            "ln_2": {"scale": ones(L, D), "bias": zeros(L, D)},
+            "mlp": {"fc_w": nrm((L, D, 4 * D), std), "fc_b": zeros(L, 4 * D),
+                    "proj_w": nrm((L, 4 * D, D), proj_std), "proj_b": zeros(L, D)},
+        },
+        "ln_f": {"scale": ones(D), "bias": zeros(D)},
+    }
+
+
+class KVCache(NamedTuple):
+    """Static-shape KV cache: k/v are [L, B, H, T_max, head_dim]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, size: GPT2Size, batch: int, max_len: int, dtype=torch.bfloat16,
+              device="cpu") -> "KVCache":
+        shape = (size.layers, batch, size.heads, max_len, size.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """q, k, v: [B, H, T, hd]; bias additive, broadcastable to [B, H, Tq, Tk].
+    Scores and softmax in fp32; the context in v's type."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = scores / math.sqrt(q.shape[-1]) + bias
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    B, T, D = x.shape
+    return x.view(B, T, heads, D // heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, hd = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * hd)
+
+
+def _block(hidden: torch.Tensor, blk: Dict[str, Any], heads: int, attend) -> torch.Tensor:
+    """One transformer block; `attend` maps (q, k, v) -> context."""
+    x = layer_norm(hidden, blk["ln_1"]["scale"], blk["ln_1"]["bias"])
+    qkv = x @ blk["attn"]["qkv_w"] + blk["attn"]["qkv_b"].to(x.dtype)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    ctx = attend(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads))
+    proj = _merge_heads(ctx) @ blk["attn"]["proj_w"]
+    hidden = hidden + proj + blk["attn"]["proj_b"].to(x.dtype)
+    x = layer_norm(hidden, blk["ln_2"]["scale"], blk["ln_2"]["bias"])
+    h = gelu_new(x @ blk["mlp"]["fc_w"] + blk["mlp"]["fc_b"].to(x.dtype))
+    return hidden + h @ blk["mlp"]["proj_w"] + blk["mlp"]["proj_b"].to(x.dtype)
+
+
+def _causal_bias(attention_mask: Optional[torch.Tensor], T: int,
+                 device) -> torch.Tensor:
+    allow = torch.ones(T, T, dtype=torch.bool, device=device).tril()[None, None]
+    if attention_mask is not None:
+        allow = allow & attention_mask[:, None, None, :].bool()
+    return torch.where(allow, 0.0, NEG_INF).float()
+
+
+def forward(params: Dict[str, Any], hidden: torch.Tensor,
+            attention_mask: Optional[torch.Tensor], size: GPT2Size) -> torch.Tensor:
+    """Teacher-forced forward.  hidden [B, T, D]; attention_mask [B, T]
+    (1 = valid) or None.  Returns ln_f(hidden) [B, T, D]."""
+    bias = _causal_bias(attention_mask, hidden.shape[1], hidden.device)
+    attend = lambda q, k, v: _attention(q, k, v, bias)  # noqa: E731
+    for l in range(size.layers):
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    return layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+
+
+def prefill(params: Dict[str, Any], hidden: torch.Tensor, attention_mask: torch.Tensor,
+            size: GPT2Size, cache_len: int, kv_dtype=None) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt and build the KV cache, allocated at `cache_len` with
+    the first T slots filled, stored as `kv_dtype` (default: hidden's type).
+    Returns (ln_f output [B, T, D], cache)."""
+    B, T, _ = hidden.shape
+    bias = _causal_bias(attention_mask, T, hidden.device)
+    cache = KVCache.zeros(size, B, cache_len, kv_dtype or hidden.dtype, hidden.device)
+    for l in range(size.layers):
+        def attend(q, k, v, l=l):
+            cache.k[l, :, :, :T] = k.to(cache.k.dtype)
+            cache.v[l, :, :, :T] = v.to(cache.v.dtype)
+            return _attention(q, k, v, bias)
+
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return out, cache
+
+
+def decode_step(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
+                position: int, attention_mask: torch.Tensor,
+                size: GPT2Size) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token incremental forward.  hidden [B, 1, D]; position: the slot
+    of this token's K/V (written into `cache` in place); attention_mask
+    [B, cache_len] with 1 on every valid slot including `position`.
+    Returns (ln_f output [B, 1, D], cache)."""
+    bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0, NEG_INF).float()
+    for l in range(size.layers):
+        def attend(q, k, v, l=l):
+            cache.k[l, :, :, position] = k[:, :, 0].to(cache.k.dtype)
+            cache.v[l, :, :, position] = v[:, :, 0].to(cache.v.dtype)
+            return _attention(q, cache.k[l].to(q.dtype), cache.v[l].to(q.dtype), bias)
+
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return out, cache

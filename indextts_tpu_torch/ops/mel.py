@@ -1,0 +1,104 @@
+"""Log-mel front end (counterpart of indextts_tpu/ops/mel.py).
+
+Matches torchaudio ``MelSpectrogram(sample_rate=24000, n_fft=1024,
+hop_length=256, win_length=1024, power=1, center=True, n_mels=100)``
+followed by ``safe_log`` = log(clamp(x, 1e-7)), the reference extractor
+(indextts/utils/feature_extractors.py:26-68):
+
+  * centered frames, reflect padding of n_fft//2 on both sides;
+  * periodic Hann window;
+  * magnitude spectrum (power 1);
+  * HTK mel filterbank without normalisation, built in numpy.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_filterbank(sample_rate: int = 24000, n_fft: int = 1024, n_mels: int = 100,
+                   fmin: float = 0.0, fmax: Optional[float] = None) -> np.ndarray:
+    """Triangular HTK filterbank [n_freqs, n_mels], no norm (torchaudio
+    melscale_fbanks defaults)."""
+    if fmax is None:
+        fmax = sample_rate / 2.0
+    n_freqs = n_fft // 2 + 1
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, n_freqs)
+    m_pts = np.linspace(hz_to_mel_htk(fmin), hz_to_mel_htk(fmax), n_mels + 2)
+    f_pts = mel_to_hz_htk(m_pts)
+    f_diff = np.diff(f_pts)
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[None, :-1]
+    up = slopes[:, 2:] / f_diff[None, 1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+def _hann_window(win_length: int, n_fft: int) -> np.ndarray:
+    """Periodic Hann window, zero-padded to n_fft when shorter."""
+    n = np.arange(win_length, dtype=np.float64)
+    w = (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
+    lpad = (n_fft - win_length) // 2
+    return np.pad(w, (lpad, n_fft - win_length - lpad))
+
+
+def spectrogram(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
+                win_length: int = 1024) -> torch.Tensor:
+    """Magnitude STFT with centered reflect-padded frames:
+    [..., T] -> [..., n_freqs, frames], fp32."""
+    x = audio.float()
+    lead = x.shape[:-1]
+    x = x.reshape(-1, 1, x.shape[-1])
+    x = F.pad(x, (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop_length)                 # [N, F, n_fft]
+    window = torch.as_tensor(_hann_window(win_length, n_fft), device=x.device)
+    mag = torch.fft.rfft(frames * window, dim=-1).abs()      # [N, F, n_freqs]
+    return mag.transpose(-1, -2).reshape(*lead, n_fft // 2 + 1, -1)
+
+
+def safe_log(x: torch.Tensor, clip_val: float = 1e-7) -> torch.Tensor:
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
+def mel_spectrogram(audio: torch.Tensor, sample_rate: int = 24000, n_fft: int = 1024,
+                    hop_length: int = 256, win_length: int = 1024, n_mels: int = 100,
+                    mel_fmin: float = 0.0,
+                    mel_fmax: Optional[float] = None) -> torch.Tensor:
+    """Log-mel features: [..., T] -> [..., n_mels, frames]."""
+    spec = spectrogram(audio, n_fft, hop_length, win_length)
+    fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, mel_fmin, mel_fmax),
+                         device=spec.device)
+    return safe_log(torch.einsum("...ft,fm->...mt", spec, fb))
+
+
+class MelSpectrogramFeatures:
+    """Object-style wrapper mirroring the reference class surface."""
+
+    def __init__(self, sample_rate: int = 24000, n_fft: int = 1024, hop_length: int = 256,
+                 win_length: Optional[int] = None, n_mels: int = 100,
+                 mel_fmin: float = 0.0, mel_fmax: Optional[float] = None):
+        self.sample_rate = sample_rate
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.win_length = win_length or n_fft
+        self.n_mels = n_mels
+        self.mel_fmin = mel_fmin
+        self.mel_fmax = mel_fmax
+
+    def __call__(self, audio: torch.Tensor) -> torch.Tensor:
+        return mel_spectrogram(audio, self.sample_rate, self.n_fft, self.hop_length,
+                               self.win_length, self.n_mels, self.mel_fmin,
+                               self.mel_fmax)
