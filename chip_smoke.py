@@ -7,22 +7,35 @@
    versions, and builds the hand-written kernels from the sources in this
    checkout (ops/cuda/_build.py).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and times both with CUDA events after
+   shapes the main paths give it, and times both with CUDA events after
    warm-up: the kernel as the replay of a CUDA graph of its launches (device
    time, `ms`) and as eager calls (host launch cost included, `eager_ms`),
-   the plain version as eager calls.  fp32 checks run with TF32 off.  The
-   decode-trunk check also runs the plain version on planted faults (a mask
-   ignored, a cache chunk dropped), which must land beyond its tolerance.
-3. Runs the main path on a small fp32 model twice, on the card (kernels)
-   and on the CPU (plain versions), and holds the wavs together.
-4. Synthesizes three requests through `IndexTTS.infer(..., num_beams=1,
-   do_sample=True)` at the full flagship width with random weights from a
-   fixed seed, and checks the wavs (int16, code_len * 1024 samples) and that
-   the main path launched the kernels (K1 109 times per vocode, K2 once per
-   decode step).
-5. Prints a `{"kernels": [...]}` line, the card line, and as the last line
-   `{"ok": true, "device": {...}}`.  Any failed check exits non-zero before
-   that line.  Without CUDA it exits non-zero at once.
+   the plain version as eager calls.  fp32 checks run with TF32 off.
+   - K1, the anti-alias activation, at the six vocoder stage shapes.
+   - K2, the decode trunk, on each tier: bf16 weights, int8, fused int4, and
+     bf16 weights over an fp8 cache, with planted faults the tolerance must
+     see (mask faults; int4 nibbles swapped; int4 MLP group scales on the
+     wrong chunk; int8 scales dropped), and the kernel's fp8 conversion
+     against torch's cast, bit for bit.
+   - K3, the beam-cache row permute, bit-exact against index_select (also
+     timed: `library_ms`) at the flagship beam-3 suffix in bf16 and fp8.
+3. Greedy beam-3 decode at full width under reorder="pallas" (K3) and
+   reorder="full" (index_select): the codes must be equal, and K3 must
+   launch once per step.
+4. Runs the main paths on a small fp32 model twice, on the card (kernels)
+   and on the CPU (plain versions), and holds codes and wavs together:
+   sampling and default beam decode, and int8 and int4 weights.
+5. Synthesizes requests through `IndexTTS.infer` at the full flagship width
+   with random weights from a fixed seed: PR 1's three sampling requests;
+   one with no generation arguments (beam-3 sampling, the reference
+   default); one with an fp8 KV cache; one each on int8 and int4 engines;
+   one default-beam request on the int8 engine.  Checks the wavs (int16,
+   code_len * 1024 samples) and each path's kernel launches (K1 109 times
+   per vocode, K2 once per single-row decode step, none on beam paths).
+6. Prints a `{"kernels": [...]}` line (K2 one entry per tier), the card
+   line, and as the last line `{"ok": true, "device": {...}}`.  Any failed
+   check exits non-zero before that line.  Without CUDA it exits non-zero
+   at once.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 N_CODES = 256               # a 200-code sentence, bucketed to 64 codes
+K1_PER_VOCODE = 109         # anti-aliased activations in one flagship vocode
 K1_FLOPS_PER_ELEM = 56      # 24 FMAs (up) + 24 (down) as flops, 8 for the two snakes
 SMALL_MODEL = {             # 2 layers, width 128, head width 64; BigVGAN at 64 channels
     "gpt": {"model_dim": 128, "layers": 2, "heads": 2, "max_mel_tokens": 64,
@@ -205,83 +219,312 @@ def decode_masks(torch, T: int, pos: int, holes: bool, device):
     return mask, faults
 
 
-def kernel_checks_decode(torch, gpt2, decode_layer):
-    """K2 at full width (24 layers, 1280 wide, 20 heads, T = 768) in the
-    first 64-slot chunk, a later one, and with mask holes: bf16 weights and
-    cache (the working type) at all three, fp32 with mask holes.  Each check
+def trunk_bytes_flops(params, L: int, D: int, pos: int, live: int, cache_itemsize: int):
+    """Bytes a decode step must move (every weight and scale once, the cache
+    rows and mask in [0, pos] once, bf16 hidden in/out, the new K/V rows
+    written) and its flops (the products, and attention over the live
+    slots)."""
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+
+    weight_bytes = nbytes(params["blocks"])
+    moved = (weight_bytes + 2 * L * (pos + 1) * D * cache_itemsize + (pos + 1) * 4 + 4 * D
+             + 2 * L * D * cache_itemsize)
+    flops = 2 * 12 * D * D * L + 4 * live * D * L
+    return moved, flops, weight_bytes
+
+
+def swap_nibbles(torch, q4):
+    """Planted fault: each packed int4 byte with its two nibbles swapped."""
+    b = q4.to(torch.int32) & 0xFF
+    return (((b << 4) | (b >> 4)) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+def fp8_conversion_check(torch, _build):
+    """K2's fp8 conversion (f32 -> e4m3 -> f32) against torch's cast, bit for
+    bit: keys of std 4, and a sweep through the subnormal range."""
+    lib = _build.load()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.cat([4 * torch.randn(1 << 20, generator=g, device="cuda"),
+                   torch.linspace(-0.03, 0.03, 8193, device="cuda"),
+                   torch.tensor([0.0, -0.0, 448.0, -448.0, 2.0 ** -9, 2.0 ** -10],
+                                device="cuda")])
+    bits = torch.empty(x.numel(), dtype=torch.uint8, device="cuda")
+    back = torch.empty_like(x)
+    rc = lib.fp8_e4m3_roundtrip(x.data_ptr(), bits.data_ptr(), back.data_ptr(), x.numel(),
+                                torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "fp8_e4m3_roundtrip")
+    ref = x.to(torch.float8_e4m3fn)
+    torch.cuda.synchronize()
+    mismatched = int((bits != ref.view(torch.uint8)).sum().item())
+    back_err = (back - ref.float()).abs().max().item()
+    over = torch.tensor([500.0], device="cuda").to(torch.float8_e4m3fn).float().item()
+    emit({"check": "K2 fp8 e4m3 conversion vs torch cast", "values": int(x.numel()),
+          "max_abs": x.abs().max().item(), "bits_mismatched": mismatched,
+          "upcast_max_abs_err": back_err, "ok": mismatched == 0 and back_err == 0.0,
+          "torch_cast_of_500": str(over)})
+    if mismatched or back_err:
+        raise SmokeFailure(f"fp8 conversion: {mismatched} bytes differ from torch's cast, "
+                           f"upcast error {back_err}")
+
+
+def kernel_checks_decode(torch, gpt2, decode_layer, quantization):
+    """K2 at full width (24 layers, 1280 wide, 20 heads, T = 768) on each
+    tier: bf16 activations with bf16 weights and cache (the working type),
+    int8 weights, fused int4 weights, and bf16 weights over an fp8 cache, at
+    positions 40 (the first 64-slot chunk), 700 and 500 with mask holes,
+    within 1 bf16 ulp of max|plain|; and fp32 with mask holes.  Each check
     also runs the plain version on planted faults, which must land beyond
-    the tolerance.  Returns its kernels-line entry (bf16, later chunk)."""
+    the tolerance.  Returns the bf16-activation tiers' kernels-line entries
+    (timed at position 700)."""
     L, D, H, T = 24, 1280, 20, 768
     k2 = decode_layer.fused_decode_trunk_flat
     plain = decode_layer.decode_trunk_plain
-    entry, max_err = None, 0.0
+    entries = []
     for dtype in (torch.bfloat16, torch.float32):
         params, k0, v0, hidden = decode_inputs(torch, gpt2, L, D, H, T, "cuda", dtype)
-        cases = ((("first chunk", 40, False), ("later chunk", 700, False))
-                 if dtype == torch.bfloat16 else ()) + (("mask holes", 500, True),)
+        if dtype == torch.bfloat16:
+            tiers = {
+                "bf16": (params, False),
+                "int8": (quantization.quantize_gpt_params({"gpt": params}, bits=8)["gpt"],
+                         False),
+                "int4": (quantization.quantize_gpt_params({"gpt": params}, bits=4)["gpt"],
+                         False),
+                "fp8_cache": (params, True),
+            }
+        else:
+            tiers = {"fp32": (params, False)}
+        entries += decode_tier_checks(torch, k2, plain, quantization, tiers, hidden, k0, v0)
+        del params, tiers, k0, v0
+        torch.cuda.empty_cache()
+    return entries
+
+
+def decode_tier_checks(torch, k2, plain, quantization, tiers, hidden, k0, v0):
+    """K2 against its plain version on each of `tiers` (name -> (trunk
+    params, fp8 cache?)) over one hidden state and cache; fp32 only with
+    mask holes.  Returns the kernels-line entries of the bf16 tiers."""
+    L, T, D = k0.shape
+    H = D // 64
+    fp32 = hidden.dtype == torch.float32
+    entries = []
+    for tier, (tp, fp8) in tiers.items():
+        kc0 = k0.to(torch.float8_e4m3fn) if fp8 else k0
+        vc0 = v0.to(torch.float8_e4m3fn) if fp8 else v0
+        blocks = tp["blocks"]
+        weight_faults = {}
+        if tier == "int8":
+            weight_faults["scales dropped"] = {**blocks, "attn": {
+                **blocks["attn"], "qkv_w": {"q": blocks["attn"]["qkv_w"]["q"],
+                                            "s": torch.ones_like(blocks["attn"]["qkv_w"]["s"])}}}
+        if tier == "int4":
+            mp = blocks["mlp"]["proj_w"]
+            weight_faults["nibbles swapped"] = {**blocks, "mlp": {**blocks["mlp"], "proj_w": {
+                "q4": swap_nibbles(torch, mp["q4"]), "s": mp["s"]}}}
+            rolled = mp["s"].reshape(L, quantization.MLP_PROJ_GROUPS, 2, D).roll(1, dims=1)
+            weight_faults["mlp group scales on the wrong chunk"] = {**blocks, "mlp": {
+                **blocks["mlp"], "proj_w": {"q4": mp["q4"], "s": rolled.reshape(mp["s"].shape)
+                                            .contiguous()}}}
+        max_err = 0.0
+        cases = (() if fp32 else (("first chunk", 40, False), ("later chunk", 700, False))) \
+            + (("mask holes", 500, True),)
         for label, pos, holes in cases:
-            mask, faults = decode_masks(torch, T, pos, holes, "cuda")
-            out, kk, vv = k2(params, hidden, k0.clone(), v0.clone(), pos, mask, H)
-            ref, rk, rv = plain(params, hidden, k0.clone(), v0.clone(), pos, mask, H)
+            mask, mask_faults = decode_masks(torch, T, pos, holes, "cuda")
+            out, kk, vv = k2(tp, hidden, kc0.clone(), vc0.clone(), pos, mask, H)
+            ref, rk, rv = plain(tp, hidden, kc0.clone(), vc0.clone(), pos, mask, H)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
             row_err = max((kk[:, pos].float() - rk[:, pos].float()).abs().max().item(),
                           (vv[:, pos].float() - rv[:, pos].float()).abs().max().item())
             row_scale = max(rk[:, pos].float().abs().max().item(),
                             rv[:, pos].float().abs().max().item())
-            scale = ref.float().abs().max().item()
-            if dtype == torch.bfloat16:
-                # both round one fp32 sum to bf16: one ulp of the largest value
-                tol, row_tol = scale * 2.0 ** -7, row_scale * 2.0 ** -7
-            else:
+            if fp32:
                 # fp32 sums in another order, through 24 layers
                 tol, row_tol = 1e-4 * max(1.0, scale), 1e-5 * max(1.0, row_scale)
+            else:
+                # both round one fp32 sum to bf16: one ulp of the largest
+                # value; the new rows within one step of the cache type
+                tol = scale * 2.0 ** -7
+                row_tol = row_scale * (2.0 ** -3 if fp8 else 2.0 ** -7)
             fault_err = {}
-            for name, fmask in faults.items():
-                fref, _, _ = plain(params, hidden, k0.clone(), v0.clone(), pos, fmask, H)
+            faults = [(name, tp, fmask) for name, fmask in mask_faults.items()]
+            faults += [(name, {**tp, "blocks": fb}, mask) for name, fb in weight_faults.items()]
+            for name, fparams, fmask in faults:
+                fref, _, _ = plain(fparams, hidden, kc0.clone(), vc0.clone(), pos, fmask, H)
                 fault_err[name] = (fref.float() - ref.float()).abs().max().item()
                 if fault_err[name] <= tol:
-                    raise SmokeFailure(f"K2 {label}: a planted fault ({name}) moves the "
+                    raise SmokeFailure(f"K2 {tier} {label}: a planted fault ({name}) moves the "
                                        f"output by {fault_err[name]}, within tol {tol}")
             timing = {}
-            if dtype == torch.bfloat16:
-                kc, vc = k0.clone(), v0.clone()
-                args = [(params, hidden, kc, vc, pos, mask, H)]
+            if label == "later chunk":   # bf16 activations only
+                args = [(tp, hidden, kc0.clone(), vc0.clone(), pos, mask, H)]
                 timing = {"ms": cuda_ms(k2, args, 20),
                           "eager_ms": cuda_ms(k2, args, 20, graph=False),
                           "plain_ms": cuda_ms(plain, args, 3, graph=False)}
                 live = int(mask[0, : pos + 1].sum().item())
-                weight_bytes = sum(t.numel() * t.element_size()
-                                   for grp in params["blocks"].values() for t in grp.values())
-                # weights once, the cache rows in [0, pos] once, mask, hidden
-                # in/out, the new K/V rows written
-                nbytes = (weight_bytes + 2 * L * (pos + 1) * D * 2 + (pos + 1) * 4 + 4 * D
-                          + 4 * L * D)
-                flops = 2 * 12 * D * D * L + 4 * live * D * L
-                bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                bound_ops = flops / FP32_FLOPS * 1e3
-                timing["bound_ms"] = max(bound_bytes, bound_ops)
-                timing["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
-                max_err = max(max_err, err)
-            name = f"K2 decode_trunk {str(dtype)[6:]} {label} pos={pos}"
-            check(name, err, tol, layers_add=(ref.float() - hidden.float()).abs().max().item(),
+                moved, flops, wbytes = trunk_bytes_flops(tp, L, D, pos, live,
+                                                         kc0.element_size())
+                bb, bo = moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+                timing.update(bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else
+                              "operations", weight_bytes=wbytes, bytes_moved=moved)
+            max_err = max(max_err, err)
+            check(f"K2 decode_trunk {tier} {label} pos={pos}", err, tol,
+                  layers_add=(ref.float() - hidden.float()).abs().max().item(),
                   planted_fault_err=fault_err, **timing)
-            check(f"K2 new K/V rows {str(dtype)[6:]} {label} pos={pos}", row_err, row_tol)
-            for new, old in ((kk, k0), (vv, v0)):  # only slot pos may change
+            check(f"K2 new K/V rows {tier} {label} pos={pos}", row_err, row_tol)
+            for new, old in ((kk, kc0), (vv, vc0)):  # only slot pos may change
                 new[:, pos] = old[:, pos]
-                if not torch.equal(new, old):
-                    raise SmokeFailure(f"K2 {label}: cache changed outside slot {pos}")
-            if dtype == torch.bfloat16 and label == "later chunk":
-                entry = {"name": "fused_decode_trunk_flat", "route": "cuda",
-                         "source": "indextts_tpu_torch/csrc/decode_layer.cu",
-                         "replaces": "indextts_tpu/ops/pallas/decode_layer.py:272",
-                         **timing, "library_ms": None,
-                         "per": f"one decode step, 24x1280 bf16, T={T}, position {pos}"}
-        del params, k0, v0
-        torch.cuda.empty_cache()
-    entry["max_abs_err"] = max_err
-    entry["tolerance"] = "1 bf16 ulp of max|plain| per position"
+                if not torch.equal(new.view(torch.uint8) if fp8 else new,
+                                   old.view(torch.uint8) if fp8 else old):
+                    raise SmokeFailure(f"K2 {tier} {label}: cache changed outside slot {pos}")
+            if timing:
+                entry = {
+                    "name": f"fused_decode_trunk_flat[{tier}]", "route": "cuda",
+                    "source": "indextts_tpu_torch/csrc/decode_layer.cu",
+                    "replaces": "indextts_tpu/ops/pallas/decode_layer.py:272",
+                    **{k: timing[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                              "bound_by")},
+                    "library_ms": None,
+                    "per": f"one decode step, 24x1280, {tier}, T={T}, position {pos}"}
+        if not fp32:
+            entries.append({**entry, "max_abs_err": max_err,
+                            "tolerance": "1 bf16 ulp of max|plain| per position"})
+        del weight_faults
+    return entries
+
+
+def kernel_checks_permute(torch, permute):
+    """K3 bit-exact against index_select at the flagship beam-3 suffix
+    [24, 3, 20, 640, 64] in bf16 and fp8 with rows [2, 0, 0], [0, 1, 2] and
+    [1, 2, 0], and on a small fp32 cache.  Returns its kernels-line entry
+    (bf16, rows [2, 0, 0])."""
+    k3 = permute.permute_cache_rows
+    plain = permute.permute_cache_rows_plain
+    g = torch.Generator(device="cuda").manual_seed(3)
+    entry = None
+    for dtype, shape in ((torch.bfloat16, (24, 3, 20, 640, 64)),
+                         (torch.float8_e4m3fn, (24, 3, 20, 640, 64)),
+                         (torch.float32, (2, 3, 4, 64, 16))):
+        k = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        v = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        ok, ek = torch.empty_like(k), torch.empty_like(v)
+        for rows_list in ([2, 0, 0], [0, 1, 2], [1, 2, 0]):
+            rows = torch.tensor(rows_list, dtype=torch.int32, device="cuda")
+            gk, gv = k3(k, v, rows, ok, ek)
+            rk, rv = plain(k, v, rows)
+            torch.cuda.synchronize()
+            as_bytes = lambda t: t.view(torch.uint8)  # noqa: E731  (bit-exact, fp8 too)
+            exact = torch.equal(as_bytes(gk), as_bytes(rk)) and torch.equal(as_bytes(gv),
+                                                                             as_bytes(rv))
+            timing = {}
+            if rows_list == [2, 0, 0] and dtype != torch.float32:
+                args = [(k, v, rows, ok, ek)]
+                nbytes = 4 * k.numel() * k.element_size() + rows.numel() * 4
+                timing = {"ms": cuda_ms(k3, args, 20),
+                          "eager_ms": cuda_ms(k3, args, 20, graph=False),
+                          "plain_ms": cuda_ms(plain, args, 20, graph=False),
+                          # the library call: index_select (fp8 through its uint8 view)
+                          "library_ms": cuda_ms(
+                              lambda a, b, r: (a.index_select(1, r), b.index_select(1, r)),
+                              [(permute.as_bits(k), permute.as_bits(v), rows.long())], 20,
+                              graph=False),
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                          "bytes_moved": nbytes}
+            name = f"K3 permute {str(dtype)[6:]} {list(shape)} rows={rows_list}"
+            check(name, 0.0 if exact else float("inf"), 0.0, **timing)
+            if dtype == torch.bfloat16 and rows_list == [2, 0, 0]:
+                entry = {"name": "permute_cache_rows", "route": "cuda",
+                         "source": "indextts_tpu_torch/csrc/permute.cu",
+                         "replaces": "indextts_tpu/ops/pallas/permute.py:31",
+                         "max_abs_err": 0.0, "tolerance": "bit-exact", **timing,
+                         "per": "one beam step's reorder of the bf16 beam-3 suffix "
+                                "[24, 3, 20, 640, 64]"}
+        del k, v, ok, ek
+    torch.cuda.empty_cache()
     return entry
+
+
+def text_inputs(tts, text: str):
+    """The decode's text tensors for the first sentence of `text`, as the
+    engine makes them."""
+    import numpy as np
+
+    sent = tts.tokenizer.split_sentences(tts.tokenizer.tokenize(text), 120)[0]
+    return tts._text_inputs([np.asarray(tts.tokenizer.convert_tokens_to_ids(sent), np.int32)])
+
+
+def profile_beam_steps(torch, uv, tts, cond, tokens, mask, kw, steps: int = 40) -> None:
+    """Where a beam step's time goes: `steps` greedy beam-3 steps (lineage)
+    under torch.profiler.  Prints the wall time per step, the device's busy
+    time per step (the sum of CUDA kernel times) and the ops that take the
+    most host and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = lambda: uv.inference_speech_beam(  # noqa: E731
+        tts.gpt_params_batched, tts.cfg.gpt, cond, tokens, mask, None,
+        **{**kw, "max_new": steps + 1})
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    busy_us = sum(dev(e) for e in events)
+    launches = sum(e.count for e in events if dev(e) > 0 and not e.key.startswith("cuda"))
+    top_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    top_dev = sorted(events, key=dev, reverse=True)[:8]
+    n = max(r.steps, 1)
+    emit({"phase": "beam3 step profile (lineage, bf16, full width)", "steps": r.steps,
+          "wall_ms_per_step": wall * 1e3 / n, "device_busy_ms_per_step": busy_us / 1e3 / n,
+          "device_busy_share": busy_us / 1e6 / wall if wall else None,
+          "device_ops_per_step": launches / n,
+          "top_host_ms_per_step": {e.key: e.self_cpu_time_total / 1e3 / n for e in top_host},
+          "top_device_ms_per_step": {e.key: dev(e) / 1e3 / n for e in top_dev}})
+
+
+def beam_reorder_agreement(torch, uv, permute, tts, prompt: str):
+    """Greedy beam-3 at full width, bf16, 600 codes: reorder="pallas" (K3
+    each step) and reorder="full" (index_select) must give equal codes, and
+    K3 must launch once per step.  Returns K3's launches on this path."""
+    cond = tts._conditioning(tts._prompt_mel(prompt))
+    tokens, mask = text_inputs(tts, "The quick brown fox jumps over the lazy dog while the "
+                                    "morning sun rises slowly above the quiet hills.")
+    kw = dict(max_new=600, num_beams=3, do_sample=False, cache_dtype=torch.bfloat16)
+    results = {}
+    launches = 0
+    for reorder in ("pallas", "full"):
+        permute.permute_cache_rows.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = uv.inference_speech_beam(tts.gpt_params_batched, tts.cfg.gpt, cond, tokens, mask,
+                                     None, reorder=reorder, **kw)
+        codes = r.codes.cpu()
+        dt = time.perf_counter() - t0
+        n = permute.permute_cache_rows.launches
+        results[reorder] = (codes, int(r.lengths[0]), r.steps)
+        emit({"phase": f"beam3 greedy full width reorder={reorder}", "steps": r.steps,
+              "code_len": int(r.lengths[0]), "s": dt, "steps_per_s": r.steps / dt,
+              "k3_launches": n})
+        if reorder == "pallas":
+            launches = n
+            if n != r.steps or n == 0:
+                raise SmokeFailure(f"K3 launched {n} times over {r.steps} beam steps")
+        elif n != 0:
+            raise SmokeFailure(f"reorder=full launched K3 {n} times")
+    profile_beam_steps(torch, uv, tts, cond, tokens, mask, kw)
+    if not torch.equal(results["pallas"][0], results["full"][0]):
+        diff = int((results["pallas"][0] != results["full"][0]).sum())
+        raise SmokeFailure(f"beam codes differ between reorder=pallas and full at {diff} "
+                           "positions")
+    check("beam3 greedy codes pallas vs full", 0.0, 0.0, code_len=results["pallas"][1],
+          steps=results["pallas"][2])
+    return launches
 
 
 def write_prompt(path: str, seconds: float = 3.0, sr: int = 24000) -> None:
@@ -296,10 +539,12 @@ def write_prompt(path: str, seconds: float = 3.0, sr: int = 24000) -> None:
 
 
 def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> None:
-    """The main path on `device` (the kernels) against the same path on the
-    CPU (the plain versions), in fp32 on a small model with the flagship's
-    head width of 64: equal greedy code lengths, and wavs within 4 int16
-    steps (sums run in other orders; the int16 cast truncates)."""
+    """The main paths on `device` (the kernels) against the same paths on the
+    CPU (the plain versions), on a small model with the flagship's head width
+    of 64, fp32 compute: sampling decode and the default beam-3 decode
+    (greedy), and int8 and int4 weights (quantization on, fp32 compute) at
+    num_beams=1.  Equal codes, and wavs within 4 int16 steps (sums run in
+    other orders; the int16 cast truncates)."""
     import numpy as np
     from indextts_tpu_torch.config import Config
 
@@ -310,80 +555,135 @@ def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> Non
             return [to_numpy(v) for v in tree]
         return tree.float().cpu().numpy()
 
-    kw = dict(config=Config.from_dict(SMALL_MODEL),
-              model_dir=os.path.join(HERE, "checkpoints_test"),
-              precision_config={"gpt": "fp32", "vocoder": "fp32"}, seed=0)
-    ref = engine_mod.IndexTTS(device="cpu", **kw)
-    dut = engine_mod.IndexTTS(device=device, **kw)
-    dut.load_numpy_params(to_numpy(ref.gpt_params), to_numpy(ref.bigvgan_params))
-    gen = dict(num_beams=1, do_sample=False, max_mel_tokens=24)
-    _, want = ref.infer(prompt, "你好，欢迎使用语音合成。", None, **gen)
-    _, got = dut.infer(prompt, "你好，欢迎使用语音合成。", None, **gen)
-    if ref.last_stats["code_lens"] != dut.last_stats["code_lens"]:
-        raise SmokeFailure(f"small model: code lengths {dut.last_stats['code_lens']} on "
-                           f"{device}, {ref.last_stats['code_lens']} on the CPU")
-    err = float(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
-    check(f"main path fp32 small model, {device} kernels vs CPU plain", err, 4.0,
-          samples=int(got.shape[0]), code_lens=dut.last_stats["code_lens"])
+    base = dict(config=Config.from_dict(SMALL_MODEL),
+                model_dir=os.path.join(HERE, "checkpoints_test"), seed=0)
+    fp32 = {"gpt": "fp32", "vocoder": "fp32"}
+    master = engine_mod.IndexTTS(device="cpu", precision_config=fp32, **base)
+    trees = (to_numpy(master.gpt_params), to_numpy(master.bigvgan_params))
+    greedy = dict(do_sample=False, max_mel_tokens=24)
+    cases = [("sampling decode", fp32, dict(greedy, num_beams=1)),
+             ("default beam-3", fp32, greedy)]
+    for bits in ("int8", "int4"):
+        cases.append((f"{bits} weights", {**fp32, "quantization": {
+            "enabled": True, "weight_dtype": bits}}, dict(greedy, num_beams=1)))
+    for name, precision, gen in cases:
+        ref = engine_mod.IndexTTS(device="cpu", precision_config=precision, **base)
+        dut = engine_mod.IndexTTS(device=device, precision_config=precision, **base)
+        ref.load_numpy_params(*trees)
+        dut.load_numpy_params(*trees)
+        _, want = ref.infer(prompt, "你好，欢迎使用语音合成。", None, **gen)
+        _, got = dut.infer(prompt, "你好，欢迎使用语音合成。", None, **gen)
+        rc, dc = ref.last_stats["codes"], dut.last_stats["codes"]
+        if len(rc) != len(dc) or any(not np.array_equal(a, b) for a, b in zip(rc, dc)):
+            raise SmokeFailure(f"small model, {name}: codes {[c.tolist() for c in dc]} on "
+                               f"{device}, {[c.tolist() for c in rc]} on the CPU")
+        err = float(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+        check(f"main path small model, {name}, {device} kernels vs CPU plain", err, 4.0,
+              samples=int(got.shape[0]), code_lens=dut.last_stats["code_lens"])
 
 
-def end_to_end(torch, engine_mod, k1, k2, prompt: str):
-    """Three requests through IndexTTS.infer at full width.  Returns the
-    launch counts of the run."""
+LONG = ("The quick brown fox jumps over the lazy dog while the morning sun rises slowly "
+        "above the quiet hills, and the old farmer walks along the river to check on his "
+        "sheep before the long day begins.")
+
+
+def run_request(torch, kernels, tts, name: str, text: str, max_tokens: int, prompt: str,
+                **gen):
+    """One IndexTTS.infer request with every kernel count set to 0 just
+    before it; checks the wav and returns (stats, launches by kernel)."""
     import numpy as np
     from scipy.io import wavfile
 
-    out_dir = os.path.dirname(prompt)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = os.path.join(os.path.dirname(prompt), f"{name}.wav")
+    tts.infer(prompt, text, out, max_text_tokens_per_sentence=max_tokens, **gen)
+    launches = {n: k.launches for n, k in kernels.items()}
+    s = tts.last_stats
+    sr, wav = wavfile.read(out)
+    n_sent = len(s["code_lens"])
+    expect = sum(s["code_lens"]) * 1024
+    emit({"request": name, "sentences": n_sent, "code_lens": s["code_lens"],
+          "samples": int(wav.shape[0]), "sample_rate": sr, "rtf": s["rtf"],
+          "total_s": s["total_s"], "wav_seconds": s["wav_seconds"],
+          "decode_steps": s["decode_steps"],
+          "decode_steps_per_s": s["decode_steps"] / s["gpt_gen_time"],
+          "gpt_gen_s": s["gpt_gen_time"], "gpt_forward_s": s["gpt_forward_time"],
+          "vocoder_s": s["bigvgan_time"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+          "gpt_dtype": str(tts.gpt_dtype), "generation": {k: str(v) for k, v in gen.items()}})
+    if wav.dtype != np.int16 or wav.shape[0] != expect or sr != 24000:
+        raise SmokeFailure(f"{name}: wav {wav.dtype} {wav.shape} sr {sr}, "
+                           f"expected int16 of {expect} samples at 24000")
+    if launches["K1"] != K1_PER_VOCODE * n_sent:
+        raise SmokeFailure(f"{name}: K1 launched {launches['K1']} times for {n_sent} vocodes")
+    return s, launches
+
+
+def end_to_end(torch, engine_mod, kernels, prompt: str):
+    """Requests through IndexTTS.infer at full width: PR 1's three sampling
+    requests, the reference default (no generation arguments: beam-3
+    sampling), an fp8 KV cache, and int8 / int4 engines.  Each path is run
+    with the counts at 0 and read after it.  Returns the launches of each
+    kernels-line entry on its paths."""
+    root = os.path.join(HERE, "checkpoints_test")
     t0 = time.perf_counter()
-    tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
-                              device="cuda", seed=0)
+    tts = engine_mod.IndexTTS(cfg_path=None, model_dir=root, device="cuda", seed=0)
     torch.cuda.synchronize()
     emit({"phase": "engine_init", "s": time.perf_counter() - t0,
           "gpt_layers": tts.cfg.gpt.layers, "model_dim": tts.cfg.gpt.model_dim,
           "heads": tts.cfg.gpt.heads,
           "bigvgan_channels": tts.cfg.bigvgan.upsample_initial_channel,
           "gpt_dtype": str(tts.gpt_dtype), "vocoder_dtype": str(tts.vocoder_dtype)})
-    requests = [
-        ("short", "你好，欢迎使用语音合成。", 120),
-        ("long", "The quick brown fox jumps over the lazy dog while the morning sun rises "
-                 "slowly above the quiet hills, and the old farmer walks along the river to "
-                 "check on his sheep before the long day begins.", 120),
-        ("two_sentences", "The quick brown fox jumps over the lazy dog while the morning sun "
-                          "rises slowly above the quiet hills. In the afternoon the children "
-                          "come home from school and play in the garden until dinner.", 40),
-    ]
-    k1.launches = 0
-    k2.launches = 0
-    for i, (name, text, max_tokens) in enumerate(requests):
-        before = (k1.launches, k2.launches)
-        torch.cuda.reset_peak_memory_stats()
-        out = os.path.join(out_dir, f"{name}.wav")
-        tts.infer(prompt, text, out, max_text_tokens_per_sentence=max_tokens,
-                  num_beams=1, do_sample=True, seed=100 + i)
-        s = tts.last_stats
-        sr, wav = wavfile.read(out)
-        n_sent = len(s["code_lens"])
-        expect = sum(s["code_lens"]) * 1024
-        d1, d2 = k1.launches - before[0], k2.launches - before[1]
-        emit({"request": name, "sentences": n_sent, "code_lens": s["code_lens"],
-              "samples": int(wav.shape[0]), "sample_rate": sr, "rtf": s["rtf"],
-              "total_s": s["total_s"], "wav_seconds": s["wav_seconds"],
-              "decode_steps": s["decode_steps"],
-              "decode_tokens_per_s": s["decode_steps"] / s["gpt_gen_time"],
-              "gpt_gen_s": s["gpt_gen_time"], "gpt_forward_s": s["gpt_forward_time"],
-              "vocoder_s": s["bigvgan_time"],
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-              "k1_launches": d1, "k2_launches": d2})
-        if wav.dtype != np.int16 or wav.shape[0] != expect or sr != 24000:
-            raise SmokeFailure(f"{name}: wav {wav.dtype} {wav.shape} sr {sr}, "
-                               f"expected int16 of {expect} samples at 24000")
-        if n_sent != (2 if name == "two_sentences" else 1):
-            raise SmokeFailure(f"{name}: {n_sent} sentences")
-        if d1 != 109 * n_sent or d2 != s["decode_steps"] or d2 == 0:
-            raise SmokeFailure(f"{name}: K1 launched {d1} times for {n_sent} vocodes, "
-                               f"K2 {d2} times for {s['decode_steps']} decode steps")
-    return {"fused_anti_alias_activation": k1.launches,
-            "fused_decode_trunk_flat": k2.launches}
+    totals = {"fused_anti_alias_activation": 0, "fused_decode_trunk_flat[bf16]": 0,
+              "fused_decode_trunk_flat[int8]": 0, "fused_decode_trunk_flat[int4]": 0,
+              "fused_decode_trunk_flat[fp8_cache]": 0}
+
+    def single_row(name, engine, text, max_tokens, tier, n_sent, **gen):
+        s, n = run_request(torch, kernels, engine, name, text, max_tokens, prompt,
+                           num_beams=1, **gen)
+        if len(s["code_lens"]) != n_sent or n["K2"] != s["decode_steps"] or n["K2"] == 0 \
+                or n["K3"]:
+            raise SmokeFailure(f"{name}: {len(s['code_lens'])} sentences, K2 {n['K2']} "
+                               f"launches for {s['decode_steps']} steps, K3 {n['K3']}")
+        totals["fused_anti_alias_activation"] += n["K1"]
+        totals[f"fused_decode_trunk_flat[{tier}]"] += n["K2"]
+
+    def beam(name, engine, text, **gen):
+        s, n = run_request(torch, kernels, engine, name, text, 120, prompt, **gen)
+        if n["K2"] or n["K3"] or s["decode_steps"] == 0:
+            raise SmokeFailure(f"{name}: beam decode launched K2 {n['K2']} and K3 {n['K3']} "
+                               f"times over {s['decode_steps']} steps")
+        totals["fused_anti_alias_activation"] += n["K1"]
+
+    # PR 1's three sampling requests (bf16 weights and cache)
+    single_row("short", tts, "你好，欢迎使用语音合成。", 120, "bf16", 1, do_sample=True,
+               seed=100)
+    single_row("long", tts, LONG, 120, "bf16", 1, do_sample=True, seed=101)
+    single_row("two_sentences", tts, "The quick brown fox jumps over the lazy dog while the "
+               "morning sun rises slowly above the quiet hills. In the afternoon the children "
+               "come home from school and play in the garden until dinner.", 40, "bf16", 2,
+               do_sample=True, seed=102)
+    # the reference default: no generation arguments (beam-3 sampling)
+    beam("default_beam3", tts, LONG)
+    # an explicit fp8 KV cache on the single-row path
+    single_row("fp8_kv_cache", tts, LONG, 120, "fp8_cache", 1,
+               kv_dtype=torch.float8_e4m3fn, seed=103)
+    del tts
+    torch.cuda.empty_cache()
+    for bits in ("int8", "int4"):
+        eng = engine_mod.IndexTTS(cfg_path=None, model_dir=root, device="cuda", seed=0,
+                                  precision_config={"gpt": bits})
+        if not eng.use_quantization or eng.kv_cache_dtype != torch.float8_e4m3fn:
+            raise SmokeFailure(f"gpt={bits}: quantization {eng.use_quantization}, "
+                               f"kv cache {eng.kv_cache_dtype}")
+        single_row(bits, eng, LONG, 120, bits, 1, seed=104)
+        if bits == "int8":  # beam decode over the fp8 KV cache and int8 matmuls
+            beam("int8_default_beam3", eng, LONG)
+        del eng
+        torch.cuda.empty_cache()
+    return totals
 
 
 def main() -> int:
@@ -395,8 +695,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.models import gpt2
-    from indextts_tpu_torch.ops import filters
-    from indextts_tpu_torch.ops.cuda import _build, decode_layer
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.ops import filters, quantization
+    from indextts_tpu_torch.ops.cuda import _build, decode_layer, permute
     from indextts_tpu_torch.ops.cuda.anti_alias import fused_anti_alias_activation as k1
 
     t_start = time.perf_counter()
@@ -410,19 +711,30 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fp8_conversion_check(torch, _build)
     entries = [kernel_checks_anti_alias(torch, filters, k1),
-               kernel_checks_decode(torch, gpt2, decode_layer)]
+               *kernel_checks_decode(torch, gpt2, decode_layer, quantization),
+               kernel_checks_permute(torch, permute)]
 
     out_dir = os.path.join(HERE, "_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
     prompt = os.path.join(out_dir, "prompt.wav")
     write_prompt(prompt)
     small_agreement(torch, engine_mod, prompt)
-    launches = end_to_end(torch, engine_mod, k1, decode_layer.fused_decode_trunk_flat, prompt)
+    kernels = {"K1": k1, "K2": decode_layer.fused_decode_trunk_flat,
+               "K3": permute.permute_cache_rows}
+    launches = end_to_end(torch, engine_mod, kernels, prompt)
+    # the beam-reorder path: counts at 0 just before it, read just after
+    tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
+                              device="cuda", seed=0)
+    for k in kernels.values():
+        k.launches = 0
+    launches["permute_cache_rows"] = beam_reorder_agreement(torch, uv, permute, tts, prompt)
+    del tts
     for e in entries:
         e["launches"] = launches[e["name"]]
         if e["launches"] == 0:
-            raise SmokeFailure(f"{e['name']} was not launched on the main path")
+            raise SmokeFailure(f"{e['name']} was not launched on its path")
     emit({"phase": "done", "s": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(card, flush=True)

@@ -2,7 +2,7 @@
 indextts/cli.py:7-59).
 
     python -m indextts_tpu_torch.cli "text" -v prompt.wav -o out.wav \
-        --model_dir checkpoints_test --num_beams 1
+        --model_dir checkpoints_test
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ def main(argv=None) -> int:
     p.add_argument("--speaker_id", default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--num_beams", type=int, default=None,
-                   help="the port decodes with num_beams=1 only (beam decode: "
-                        "ROADMAP A8)")
+                   help="beams of the decode (default 3, the reference's; 1 samples "
+                        "one row)")
     p.add_argument("--cfg_scale", type=float, default=None,
                    help="classifier-free guidance scale (1.0 = off; other values: "
                         "ROADMAP A11)")

@@ -1,33 +1,53 @@
 // One single-row GPT-2 decode step through all layers, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel indextts_tpu/ops/pallas/decode_layer.py
-// (fused_decode_trunk_flat, :272; body _kernel, :63) on its plain-weight
-// tier.  For each layer l, with the residual stream x kept in fp32:
+// (fused_decode_trunk_flat, :272; body _kernel, :63) on all its tiers.  For
+// each layer l, with the residual stream x kept in fp32:
 //
 //   qkv  = LN1(x) @ qkv_w[l] + qkv_b[l]      new K/V rows -> cache[l, pos]
 //   ctx  = softmax(q k^T / sqrt(hd) + mask) v   over cache slots [0, pos]
 //   x   += ctx @ proj_w[l] + proj_b[l]
 //   x   += gelu_new(LN2(x) @ fc_w[l] + fc_b[l]) @ mproj_w[l] + mproj_b[l]
 //
-// and writes x (before ln_f) in the input type.  Weights are stacked
-// [L, K, N] and K-major, the cache is flat [L, T, D] head-major; weights,
-// cache and hidden share one type (bf16 or fp32).  LayerNorm (eps 1e-5),
-// softmax and every accumulation are fp32; the mask is additive (-1e9 where
-// attention_mask is 0).
+// and writes x (before ln_f) in the activation type A (bf16 or fp32), the
+// type of hidden, the LayerNorm parameters and the biases.  Weights are
+// stacked [L, K, N] and K-major, in one of three forms (template kForm):
+//   kPlain  A                                  x @ w
+//   kInt8   q int8 [L, K, N], s fp32 [L, 1, N]  (x @ q) * s
+//   kInt4   q4 int8 [L, K/2, N], s fp32 [L, 2G, N]: K splits into G chunks;
+//           in chunk g, byte row j holds row 2g*h + j in its low nibble and
+//           row 2g*h + h + j in its high nibble (h = K / 2G), and the two
+//           halves scale by rows 2g and 2g + 1 (ops/quantization.py's fused
+//           layout; G = 4 for the MLP down-projection, 1 elsewhere).
+// The cache (template C) is flat [L, T, D] head-major, in A or fp8 e4m3:
+// the qkv kernel writes the new rows converted to C, attention upcasts on
+// load, and the token's own slot is read from the fp32 qkv rounded to A, as
+// the TPU kernel merges its row into the chunk in the compute type.
+// LayerNorm (eps 1e-5), softmax and every accumulation are fp32; the mask is
+// additive (-1e9 where attention_mask is 0).
 //
-// Bound on the H100: a step reads every weight once, 12 D^2 values per layer
-// (943.7 MB in bf16 at D=1280, L=24) plus 2 (pos+1) D cache values per layer,
-// against about 2 flops per weight: device memory bandwidth bounds it.
-// Design, simple first: six kernels per layer.  The GEMV kernels give each
-// block 16 output columns over the full K, so sums stay deterministic and
-// every 8 lanes read one 32-byte sector of a weight row; LayerNorm is
-// recomputed by each block from x (5 KB, from L2) into shared memory.
-// Attention splits [0, pos] into 64-slot chunks, one block per (head, chunk),
-// with a softmax per chunk that a second kernel combines across chunks.
-// Launch overhead (6 L + 2 launches a step) is the known gap to the bound.
+// Bound on the H100: a step reads every weight once (12 D^2 values a layer:
+// 943.7 MB in bf16 at D=1280, L=24; ~473 MB int8, ~239 MB int4) plus
+// 2 (pos+1) D cache values a layer, against about 2 flops per weight:
+// device memory bandwidth bounds it.  Design, simple first: six kernels per
+// layer.  The GEMV kernels give each block 16 output columns over the full
+// K, so sums stay deterministic; every 8 lanes read one 32-byte sector of a
+// bf16 weight row (16 bytes of int8, 16 of packed int4).  LayerNorm is
+// recomputed by each block from x (5 KB, from L2) into shared memory.  The
+// int4 GEMV keeps one fp32 partial sum per (group, half) and column and
+// scales it by its row before adding it to the column's sum; int8 scales the
+// column's whole sum.  Attention splits [0, pos] into 64-slot chunks, one
+// block per (head, chunk), with a softmax per chunk that a second kernel
+// combines across chunks.  Launch overhead (6 L + 2 launches a step) is the
+// known gap to the bound.
+//
+// fp8 conversion: round to nearest even, as torch's float8_e4m3fn cast and
+// the JAX package's; a magnitude of 480 or more (and NaN) becomes NaN, no
+// saturation (CUDA's __NV_SATFINITE would clamp at 448).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -41,17 +61,75 @@ constexpr int kSlotsPerWarp = kAttnChunk / kAttnWarps;
 constexpr float kNegInf = -1e9f;
 
 enum Epilogue { kStore = 0, kStoreGelu = 1, kAddTo = 2 };
+enum WeightForm { kPlain = 0, kInt8 = 1, kInt4 = 2 };
+
+struct fp8_e4m3 {
+  uint8_t bits;
+};
+
+__device__ __forceinline__ float e4m3_to_f32(uint8_t v) {
+  const uint32_t sign = static_cast<uint32_t>(v & 0x80) << 24;
+  const uint32_t e = (v >> 3) & 0xF, m = v & 7;
+  if (e == 15 && m == 7) return __uint_as_float(sign | 0x7FC00000u);  // NaN
+  if (e == 0) {                                                       // subnormal
+    const float r = static_cast<float>(m) * 0.001953125f;             // m * 2^-9
+    return sign ? -r : r;
+  }
+  return __uint_as_float(sign | ((e + 120) << 23) | (m << 20));
+}
+
+__device__ __forceinline__ uint8_t f32_to_e4m3(float f) {
+  uint32_t bits = __float_as_uint(f);
+  const uint8_t sign = static_cast<uint8_t>((bits >> 24) & 0x80);
+  bits &= 0x7FFFFFFFu;
+  if (bits >= (1087u << 20)) return sign | 0x7F;  // |f| >= 480, inf or NaN: NaN
+  if (bits < (121u << 23)) {                      // below 2^-6: subnormal (or 0)
+    const uint32_t magic = 141u << 23;            // adding it rounds to even at 2^-9
+    const uint32_t r = __float_as_uint(__uint_as_float(bits) + __uint_as_float(magic));
+    return sign | static_cast<uint8_t>(r - magic);
+  }
+  const uint32_t mant_odd = (bits >> 20) & 1;
+  bits += (static_cast<uint32_t>(7 - 127) << 23) + 0x7FFFF + mant_odd;
+  return sign | static_cast<uint8_t>(bits >> 20);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store(fp8_e4m3* p, float v) { p->bits = f32_to_e4m3(v); }
+
+// v rounded to type T and back
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const fp8_e4m3* p) {
+  const uint16_t two = *reinterpret_cast<const uint16_t*>(p);
+  return make_float2(e4m3_to_f32(two & 0xFF), e4m3_to_f32(two >> 8));
+}
+
+// the two int8 values at p (p even-aligned)
+__device__ __forceinline__ char2 load_i8x2(const int8_t* p) {
+  return *reinterpret_cast<const char2*>(p);
+}
+// sign-extended nibbles of a packed byte: two shifts each
+__device__ __forceinline__ float nib_lo(signed char b) {
+  return static_cast<float>(static_cast<int32_t>(static_cast<uint32_t>(b) << 28) >> 28);
+}
+__device__ __forceinline__ float nib_hi(signed char b) {
+  return static_cast<float>(static_cast<int32_t>(static_cast<uint32_t>(b) << 24) >> 28);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -78,16 +156,18 @@ __device__ __forceinline__ float gelu_new(float h) {
   return 0.5f * h * (1.f + tanhf(c * (h + 0.044715f * h * h * h)));
 }
 
-// out[n] (op) vin @ w[:, n] + bias[n] for this block's 16 columns, with vin
-// = LN(in) when ln_s is given, else in.  w: [K, N] K-major.  kStore also
-// copies columns [D, 2D) and [2D, 3D) into k_row / v_row (the new cache
-// rows) in the weight type.
-template <typename W>
+// out[n] (op) vin @ W[:, n] + bias[n] for this block's 16 columns, with vin
+// = LN(in) when ln_s is given, else in.  W: [K, N] K-major in form kForm
+// (w, and for the quantized forms its scales ws with G contraction groups).
+// kStore also writes columns [D, 2D) and [2D, 3D) into k_row / v_row (the
+// new cache rows) in the cache type C.
+template <typename A, typename C, int kForm>
 __global__ void __launch_bounds__(kGemvThreads)
-gemv_kernel(const float* __restrict__ in, const W* __restrict__ ln_s,
-            const W* __restrict__ ln_b, const W* __restrict__ w,
-            const W* __restrict__ bias, float* __restrict__ out, int K, int N, int epi,
-            W* __restrict__ k_row, W* __restrict__ v_row, int D) {
+gemv_kernel(const float* __restrict__ in, const A* __restrict__ ln_s,
+            const A* __restrict__ ln_b, const void* __restrict__ w,
+            const float* __restrict__ ws, int G, const A* __restrict__ bias,
+            float* __restrict__ out, int K, int N, int epi, C* __restrict__ k_row,
+            C* __restrict__ v_row, int D) {
   extern __shared__ float vin[];  // [K]
   __shared__ float red[kGemvRows][kGemvCols];
   __shared__ float stat[kGemvThreads / 32];
@@ -115,13 +195,44 @@ gemv_kernel(const float* __restrict__ in, const W* __restrict__ ln_s,
   const int n0 = blockIdx.x * kGemvCols + 2 * pair;
   float acc0 = 0.f, acc1 = 0.f;
   if (n0 < N) {
-    const W* wp = w + n0;
+    if constexpr (kForm == kPlain) {
+      const A* wp = static_cast<const A*>(w) + n0;
 #pragma unroll 8
-    for (int k = r; k < K; k += kGemvRows) {
-      const float2 wv = load2(wp + (long long)k * N);
-      const float xv = vin[k];
-      acc0 = fmaf(xv, wv.x, acc0);
-      acc1 = fmaf(xv, wv.y, acc1);
+      for (int k = r; k < K; k += kGemvRows) {
+        const float2 wv = load2(wp + (long long)k * N);
+        const float xv = vin[k];
+        acc0 = fmaf(xv, wv.x, acc0);
+        acc1 = fmaf(xv, wv.y, acc1);
+      }
+    } else if constexpr (kForm == kInt8) {
+      const int8_t* wp = static_cast<const int8_t*>(w) + n0;
+#pragma unroll 8
+      for (int k = r; k < K; k += kGemvRows) {
+        const char2 b = load_i8x2(wp + (long long)k * N);
+        const float xv = vin[k];
+        acc0 = fmaf(xv, static_cast<float>(b.x), acc0);
+        acc1 = fmaf(xv, static_cast<float>(b.y), acc1);
+      }
+    } else {
+      const int8_t* wp = static_cast<const int8_t*>(w) + n0;
+      const int half = K / (2 * G);
+      for (int g = 0; g < G; ++g) {
+        const float* xl = vin + 2 * g * half;  // rows of the low nibbles
+        const float* xh = xl + half;           // rows of the high nibbles
+        float lo0 = 0.f, lo1 = 0.f, hi0 = 0.f, hi1 = 0.f;
+#pragma unroll 4
+        for (int j = r; j < half; j += kGemvRows) {
+          const char2 b = load_i8x2(wp + (long long)(g * half + j) * N);
+          lo0 = fmaf(xl[j], nib_lo(b.x), lo0);
+          lo1 = fmaf(xl[j], nib_lo(b.y), lo1);
+          hi0 = fmaf(xh[j], nib_hi(b.x), hi0);
+          hi1 = fmaf(xh[j], nib_hi(b.y), hi1);
+        }
+        const float* s_lo = ws + (long long)(2 * g) * N + n0;
+        const float* s_hi = s_lo + N;
+        acc0 += lo0 * s_lo[0] + hi0 * s_hi[0];
+        acc1 += lo1 * s_lo[1] + hi1 * s_hi[1];
+      }
     }
   }
   red[r][2 * pair] = acc0;
@@ -134,6 +245,7 @@ gemv_kernel(const float* __restrict__ in, const W* __restrict__ ln_s,
       float sum = 0.f;
 #pragma unroll
       for (int i = 0; i < kGemvRows; ++i) sum += red[i][threadIdx.x];
+      if constexpr (kForm == kInt8) sum *= ws[n];
       const float b = to_f32(bias[n]);
       if (epi == kAddTo) {
         out[n] = (out[n] + sum) + b;
@@ -148,17 +260,18 @@ gemv_kernel(const float* __restrict__ in, const W* __restrict__ ln_s,
 }
 
 // One block per (head, 64-slot chunk of [0, pos]); 4 warps of 16 slots.
+// qkv: this step's fp32 q | k | v; slot pos is read from there, rounded to A.
 // Writes part[(h * n_split + chunk) * (2 + hd)] = {max, sum, acc[hd]}.
-template <typename T>
+template <typename A, typename C>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-attn_partial_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ mask, int pos, int D,
+attn_partial_kernel(const float* __restrict__ qkv, const C* __restrict__ kc,
+                    const C* __restrict__ vc, const int* __restrict__ mask, int pos, int D,
                     float scale, float* __restrict__ part) {
   __shared__ float wm[kAttnWarps], ws[kAttnWarps], wacc[kAttnWarps][kHeadDim];
   const int h = blockIdx.x, chunk = blockIdx.y, n_split = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col = h * kHeadDim + 2 * lane;
-  const float q0 = q[col], q1 = q[col + 1];
+  const float q0 = qkv[col], q1 = qkv[col + 1];
   const int base = chunk * kAttnChunk + warp * kSlotsPerWarp;
 
   float sc[kSlotsPerWarp];
@@ -166,9 +279,11 @@ attn_partial_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   for (int i = 0; i < kSlotsPerWarp; ++i) {
     const int t = base + i;
     float d = 0.f;
-    if (t <= pos) {
+    if (t < pos) {
       const float2 kv = load2(kc + (long long)t * D + col);
       d = q0 * kv.x + q1 * kv.y;
+    } else if (t == pos) {
+      d = q0 * round_to<A>(qkv[D + col]) + q1 * round_to<A>(qkv[D + col + 1]);
     }
     sc[i] = d;
   }
@@ -188,7 +303,9 @@ attn_partial_kernel(const float* __restrict__ q, const T* __restrict__ kc,
     const int t = base + i;
     if (t <= pos) {
       const float p = expf(sc[i] - m);
-      const float2 vv = load2(vc + (long long)t * D + col);
+      const float2 vv = t < pos ? load2(vc + (long long)t * D + col)
+                                : make_float2(round_to<A>(qkv[2 * D + col]),
+                                              round_to<A>(qkv[2 * D + col + 1]));
       s += p;
       a0 = fmaf(p, vv.x, a0);
       a1 = fmaf(p, vv.y, a1);
@@ -207,13 +324,13 @@ attn_partial_kernel(const float* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int w = 0; w < kAttnWarps; ++w)
       if (ws[w] > 0.f) M = fmaxf(M, wm[w]);
-    float S = 0.f, A = 0.f;
+    float S = 0.f, Acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kAttnWarps; ++w) {
       if (ws[w] > 0.f) {
         const float f = expf(wm[w] - M);
         S = fmaf(ws[w], f, S);
-        A = fmaf(wacc[w][threadIdx.x], f, A);
+        Acc = fmaf(wacc[w][threadIdx.x], f, Acc);
       }
     }
     float* out = part + ((long long)h * n_split + chunk) * (2 + kHeadDim);
@@ -221,7 +338,7 @@ attn_partial_kernel(const float* __restrict__ q, const T* __restrict__ kc,
       out[0] = M;
       out[1] = S;
     }
-    out[2 + threadIdx.x] = A;
+    out[2 + threadIdx.x] = Acc;
   }
 }
 
@@ -232,14 +349,14 @@ __global__ void attn_combine_kernel(const float* __restrict__ part, int n_split,
   const float* p = part + (long long)h * n_split * (2 + kHeadDim);
   float M = -INFINITY;
   for (int c = 0; c < n_split; ++c) M = fmaxf(M, p[c * (2 + kHeadDim)]);
-  float S = 0.f, A = 0.f;
+  float S = 0.f, Acc = 0.f;
   for (int c = 0; c < n_split; ++c) {
     const float* pc = p + c * (2 + kHeadDim);
     const float f = expf(pc[0] - M);
     S = fmaf(pc[1], f, S);
-    A = fmaf(pc[2 + d], f, A);
+    Acc = fmaf(pc[2 + d], f, Acc);
   }
-  ctx[h * kHeadDim + d] = A / S;
+  ctx[h * kHeadDim + d] = Acc / S;
 }
 
 template <typename T>
@@ -254,22 +371,49 @@ __global__ void from_f32_kernel(const float* __restrict__ in, T* __restrict__ ou
   if (i < n) store(out + i, in[i]);
 }
 
-struct Params {
-  const void *ln1_s, *ln1_b, *qkv_w, *qkv_b, *proj_w, *proj_b;
-  const void *ln2_s, *ln2_b, *fc_w, *fc_b, *mproj_w, *mproj_b;
+// One stacked matrix: its data, the fp32 scales of a quantized form, and
+// the number of contraction groups of an int4 one.
+struct Matrix {
+  const void* w;
+  const float* s;
+  int groups;
 };
 
-template <typename T>
-int gemv(cudaStream_t s, const float* in, const T* ln_s, const T* ln_b, const T* w,
-         const T* b, float* out, int K, int N, int epi, T* k_row, T* v_row, int D) {
+struct Params {
+  const void *ln1_s, *ln1_b;
+  Matrix qkv;
+  const void* qkv_b;
+  Matrix proj;
+  const void *proj_b, *ln2_s, *ln2_b;
+  Matrix fc;
+  const void* fc_b;
+  Matrix mproj;
+  const void* mproj_b;
+};
+
+// Layer l of a stacked [L, K, N] matrix in form kForm.
+template <typename A, int kForm>
+Matrix layer_of(const Matrix& m, int l, long long K, long long N) {
+  if constexpr (kForm == kPlain)
+    return {static_cast<const A*>(m.w) + l * K * N, nullptr, 1};
+  else if constexpr (kForm == kInt8)
+    return {static_cast<const int8_t*>(m.w) + l * K * N, m.s + l * N, 1};
+  else
+    return {static_cast<const int8_t*>(m.w) + l * (K / 2) * N,
+            m.s + (long long)l * 2 * m.groups * N, m.groups};
+}
+
+template <typename A, typename C, int kForm>
+int gemv(cudaStream_t s, const float* in, const A* ln_s, const A* ln_b, const Matrix& m,
+         const A* b, float* out, int K, int N, int epi, C* k_row, C* v_row, int D) {
   const int blocks = (N + kGemvCols - 1) / kGemvCols;
-  gemv_kernel<T><<<blocks, kGemvThreads, K * sizeof(float), s>>>(
-      in, ln_s, ln_b, w, b, out, K, N, epi, k_row, v_row, D);
+  gemv_kernel<A, C, kForm><<<blocks, kGemvThreads, K * sizeof(float), s>>>(
+      in, ln_s, ln_b, m.w, m.s, m.groups, b, out, K, N, epi, k_row, v_row, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int trunk_step(const Params& P, const T* hidden, T* out, T* kc, T* vc, const int* mask,
+template <typename A, typename C, int kForm>
+int trunk_step(const Params& P, const A* hidden, A* out, C* kc, C* vc, const int* mask,
                int pos, int L, int D, int H, int T_len, float* scratch, cudaStream_t s) {
   float* x = scratch;
   float* qkv = x + D;
@@ -280,45 +424,73 @@ int trunk_step(const Params& P, const T* hidden, T* out, T* kc, T* vc, const int
   const float scale = 1.0f / sqrtf(static_cast<float>(D / H));
   int rc;
 
-  to_f32_kernel<T><<<(D + 255) / 256, 256, 0, s>>>(hidden, x, D);
+  to_f32_kernel<A><<<(D + 255) / 256, 256, 0, s>>>(hidden, x, D);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
   for (int l = 0; l < L; ++l) {
-    const long long dd = (long long)D * D;
-    const T* ln1_s = static_cast<const T*>(P.ln1_s) + (long long)l * D;
-    const T* ln1_b = static_cast<const T*>(P.ln1_b) + (long long)l * D;
-    const T* qkv_w = static_cast<const T*>(P.qkv_w) + l * 3 * dd;
-    const T* qkv_b = static_cast<const T*>(P.qkv_b) + (long long)l * 3 * D;
-    const T* proj_w = static_cast<const T*>(P.proj_w) + l * dd;
-    const T* proj_b = static_cast<const T*>(P.proj_b) + (long long)l * D;
-    const T* ln2_s = static_cast<const T*>(P.ln2_s) + (long long)l * D;
-    const T* ln2_b = static_cast<const T*>(P.ln2_b) + (long long)l * D;
-    const T* fc_w = static_cast<const T*>(P.fc_w) + l * 4 * dd;
-    const T* fc_b = static_cast<const T*>(P.fc_b) + (long long)l * 4 * D;
-    const T* mproj_w = static_cast<const T*>(P.mproj_w) + l * 4 * dd;
-    const T* mproj_b = static_cast<const T*>(P.mproj_b) + (long long)l * D;
-    T* kl = kc + (long long)l * T_len * D;
-    T* vl = vc + (long long)l * T_len * D;
+    const A* ln1_s = static_cast<const A*>(P.ln1_s) + (long long)l * D;
+    const A* ln1_b = static_cast<const A*>(P.ln1_b) + (long long)l * D;
+    const A* qkv_b = static_cast<const A*>(P.qkv_b) + (long long)l * 3 * D;
+    const A* proj_b = static_cast<const A*>(P.proj_b) + (long long)l * D;
+    const A* ln2_s = static_cast<const A*>(P.ln2_s) + (long long)l * D;
+    const A* ln2_b = static_cast<const A*>(P.ln2_b) + (long long)l * D;
+    const A* fc_b = static_cast<const A*>(P.fc_b) + (long long)l * 4 * D;
+    const A* mproj_b = static_cast<const A*>(P.mproj_b) + (long long)l * D;
+    const Matrix qkv_w = layer_of<A, kForm>(P.qkv, l, D, 3 * D);
+    const Matrix proj_w = layer_of<A, kForm>(P.proj, l, D, D);
+    const Matrix fc_w = layer_of<A, kForm>(P.fc, l, D, 4 * D);
+    const Matrix mproj_w = layer_of<A, kForm>(P.mproj, l, 4 * D, D);
+    C* kl = kc + (long long)l * T_len * D;
+    C* vl = vc + (long long)l * T_len * D;
 
-    if ((rc = gemv<T>(s, x, ln1_s, ln1_b, qkv_w, qkv_b, qkv, D, 3 * D, kStore,
-                      kl + (long long)pos * D, vl + (long long)pos * D, D)))
+    if ((rc = gemv<A, C, kForm>(s, x, ln1_s, ln1_b, qkv_w, qkv_b, qkv, D, 3 * D, kStore,
+                                kl + (long long)pos * D, vl + (long long)pos * D, D)))
       return rc;
-    attn_partial_kernel<T><<<dim3(H, n_split), kAttnWarps * 32, 0, s>>>(
+    attn_partial_kernel<A, C><<<dim3(H, n_split), kAttnWarps * 32, 0, s>>>(
         qkv, kl, vl, mask, pos, D, scale, part);
     if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
     attn_combine_kernel<<<H, kHeadDim, 0, s>>>(part, n_split, ctx);
     if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-    if ((rc = gemv<T>(s, ctx, nullptr, nullptr, proj_w, proj_b, x, D, D, kAddTo,
-                      nullptr, nullptr, D)))
+    if ((rc = gemv<A, C, kForm>(s, ctx, nullptr, nullptr, proj_w, proj_b, x, D, D, kAddTo,
+                                nullptr, nullptr, D)))
       return rc;
-    if ((rc = gemv<T>(s, x, ln2_s, ln2_b, fc_w, fc_b, hbuf, D, 4 * D, kStoreGelu,
-                      nullptr, nullptr, D)))
+    if ((rc = gemv<A, C, kForm>(s, x, ln2_s, ln2_b, fc_w, fc_b, hbuf, D, 4 * D, kStoreGelu,
+                                nullptr, nullptr, D)))
       return rc;
-    if ((rc = gemv<T>(s, hbuf, nullptr, nullptr, mproj_w, mproj_b, x, 4 * D, D, kAddTo,
-                      nullptr, nullptr, D)))
+    if ((rc = gemv<A, C, kForm>(s, hbuf, nullptr, nullptr, mproj_w, mproj_b, x, 4 * D, D,
+                                kAddTo, nullptr, nullptr, D)))
       return rc;
   }
-  from_f32_kernel<T><<<(D + 255) / 256, 256, 0, s>>>(x, out, D);
+  from_f32_kernel<A><<<(D + 255) / 256, 256, 0, s>>>(x, out, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A, typename C>
+int dispatch_form(int form, const Params& P, const void* hidden, void* out, void* k, void* v,
+                  const int* mask, int pos, int L, int D, int H, int T, float* scratch,
+                  cudaStream_t s) {
+  const A* h = static_cast<const A*>(hidden);
+  A* o = static_cast<A*>(out);
+  C* kc = static_cast<C*>(k);
+  C* vc = static_cast<C*>(v);
+  switch (form) {
+    case kPlain:
+      return trunk_step<A, C, kPlain>(P, h, o, kc, vc, mask, pos, L, D, H, T, scratch, s);
+    case kInt8:
+      return trunk_step<A, C, kInt8>(P, h, o, kc, vc, mask, pos, L, D, H, T, scratch, s);
+    case kInt4:
+      return trunk_step<A, C, kInt4>(P, h, o, kc, vc, mask, pos, L, D, H, T, scratch, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+__global__ void e4m3_roundtrip_kernel(const float* __restrict__ in, uint8_t* __restrict__ bits,
+                                      float* __restrict__ back, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    bits[i] = f32_to_e4m3(in[i]);
+    back[i] = e4m3_to_f32(bits[i]);
+  }
 }
 
 }  // namespace
@@ -328,27 +500,52 @@ extern "C" long long decode_trunk_scratch_floats(int D, int H, int T) {
   return 9LL * D + (long long)H * ((T + kAttnChunk - 1) / kAttnChunk) * (2 + kHeadDim);
 }
 
-// One decode step over all L layers.  hidden, out: [D]; k, v: [L, T, D]
-// (the new rows are written at slot pos, in place); mask: [T] int32; the 12
-// weight pointers are the stacked GPT-2 block parameters.  Requires
-// D / H == 64, D % 16 == 0 and 0 <= pos < T.  Returns cudaGetLastError().
+// One decode step over all L layers.  act_bf16: hidden, out, LayerNorm
+// parameters and biases are bf16 (else fp32); form: 0 plain (weights in the
+// activation type), 1 int8, 2 fused int4 (each matrix: data, fp32 scales,
+// contraction groups); cache_fp8: the cache is e4m3 (else the activation
+// type).  hidden, out: [D]; k, v: [L, T, D] (the new rows are written at slot
+// pos, in place); mask: [T] int32.  Requires D / H == 64, D % 16 == 0,
+// 0 <= pos < T, and for int4 K % (2 * groups) == 0.  Returns
+// cudaGetLastError().
 extern "C" int decode_trunk_step(
-    int is_bf16, const void* hidden, void* out, void* k, void* v, const int* mask, int pos,
-    int L, int D, int H, int T, const void* ln1_s, const void* ln1_b, const void* qkv_w,
-    const void* qkv_b, const void* proj_w, const void* proj_b, const void* ln2_s,
-    const void* ln2_b, const void* fc_w, const void* fc_b, const void* mproj_w,
+    int act_bf16, int form, int cache_fp8, const void* hidden, void* out, void* k, void* v,
+    const int* mask, int pos, int L, int D, int H, int T, const void* ln1_s,
+    const void* ln1_b, const void* qkv_w, const float* qkv_s, int qkv_g, const void* qkv_b,
+    const void* proj_w, const float* proj_s, int proj_g, const void* proj_b,
+    const void* ln2_s, const void* ln2_b, const void* fc_w, const float* fc_s, int fc_g,
+    const void* fc_b, const void* mproj_w, const float* mproj_s, int mproj_g,
     const void* mproj_b, float* scratch, void* stream) {
   if (D / H != kHeadDim || D % kGemvCols != 0 || pos < 0 || pos >= T)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params P{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b,
-                 ln2_s, ln2_b, fc_w,  fc_b,  mproj_w, mproj_b};
+  if (form == kInt4 && (qkv_g < 1 || proj_g < 1 || fc_g < 1 || mproj_g < 1 ||
+                        D % (2 * qkv_g) || D % (2 * proj_g) || D % (2 * fc_g) ||
+                        (4 * D) % (2 * mproj_g)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params P{ln1_s, ln1_b, {qkv_w, qkv_s, qkv_g},       qkv_b, {proj_w, proj_s, proj_g},
+                 proj_b, ln2_s, ln2_b, {fc_w, fc_s, fc_g}, fc_b,  {mproj_w, mproj_s, mproj_g},
+                 mproj_b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return trunk_step<__nv_bfloat16>(
-        P, static_cast<const __nv_bfloat16*>(hidden), static_cast<__nv_bfloat16*>(out),
-        static_cast<__nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(v), mask, pos, L, D, H,
-        T, scratch, s);
-  return trunk_step<float>(P, static_cast<const float*>(hidden), static_cast<float*>(out),
-                           static_cast<float*>(k), static_cast<float*>(v), mask, pos, L, D,
-                           H, T, scratch, s);
+  if (act_bf16) {
+    if (cache_fp8)
+      return dispatch_form<__nv_bfloat16, fp8_e4m3>(form, P, hidden, out, k, v, mask, pos, L,
+                                                    D, H, T, scratch, s);
+    return dispatch_form<__nv_bfloat16, __nv_bfloat16>(form, P, hidden, out, k, v, mask, pos,
+                                                       L, D, H, T, scratch, s);
+  }
+  if (cache_fp8)
+    return dispatch_form<float, fp8_e4m3>(form, P, hidden, out, k, v, mask, pos, L, D, H, T,
+                                          scratch, s);
+  return dispatch_form<float, float>(form, P, hidden, out, k, v, mask, pos, L, D, H, T,
+                                     scratch, s);
+}
+
+// The kernel's fp8 conversions on n floats: bits[i] = e4m3(in[i]) and
+// back[i] = float(bits[i]), for holding them against torch's cast.
+extern "C" int fp8_e4m3_roundtrip(const float* in, uint8_t* bits, float* back, int n,
+                                  void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  e4m3_roundtrip_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, bits, back, n);
+  return static_cast<int>(cudaGetLastError());
 }

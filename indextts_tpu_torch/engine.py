@@ -2,10 +2,12 @@
 indextts_tpu/engine.py).
 
 Single-utterance synthesis, sentence by sentence (reference infer.py:
-779-917): prompt mel -> conditioning latents -> sampling decode of mel codes
--> long-silence compression -> teacher-forced latent re-forward -> BigVGAN
-with ECAPA speaker conditioning -> int16 PCM.  Runs on `cuda` unless the
-caller passes `device="cpu"`; with no GPU and no explicit CPU it raises.
+779-917): prompt mel -> conditioning latents -> beam or sampling decode of
+mel codes -> long-silence compression -> teacher-forced latent re-forward ->
+BigVGAN with ECAPA speaker conditioning -> int16 PCM.  The GPT weights may
+be quantized to int8 or int4 with an fp8 KV cache (precision keys as in the
+JAX engine).  Runs on `cuda` unless the caller passes `device="cpu"`; with
+no GPU and no explicit CPU it raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from indextts_tpu_torch.config import Config
 from indextts_tpu_torch.io import from_jax
 from indextts_tpu_torch.models import bigvgan as bigvgan_model
 from indextts_tpu_torch.models import unified_voice as uv
+from indextts_tpu_torch.ops import quantization
 from indextts_tpu_torch.ops.mel import MelSpectrogramFeatures
 from indextts_tpu_torch.ops.sampling import mix_seed
 from indextts_tpu_torch.utils import audio as audio_io
@@ -34,6 +37,10 @@ def _resolve_dtype(name: str) -> torch.dtype:
         return torch.bfloat16
     if name in ("fp16", "float16"):
         return torch.float16
+    if name in ("fp8", "int8", "int4"):
+        # the quantized weight tiers compute in bf16 (the quantization itself
+        # is applied separately), as in the JAX engine
+        return torch.bfloat16
     return torch.float32
 
 
@@ -118,12 +125,24 @@ class IndexTTS:
         gpt_prec = str(pick("gpt", legacy))
         voc_prec = str(pick("vocoder", legacy))
         quant = pick("quantization", {}) or {}
-        if bool(quant.get("enabled", False)) or gpt_prec in ("fp8", "int8", "int4"):
-            raise NotImplementedError("quantized weight tiers are ROADMAP item A10")
-        if str(pick("kv_cache", "auto")) == "fp8":
-            raise NotImplementedError("the fp8 KV cache is ROADMAP item A10")
+        self.use_quantization = bool(quant.get("enabled", False)) or gpt_prec in ("int8",
+                                                                                "int4")
+        # weight type: an explicit quantization.weight_dtype (runtime or
+        # config_inference.yaml) wins, then a quantized gpt precision, then
+        # the base config's default (which must not shadow gpt="int4")
+        explicit_wd = next((src["quantization"]["weight_dtype"] for src in (runtime, file_cfg)
+                            if (src.get("quantization") or {}).get("weight_dtype")), None)
+        self.quant_weight_dtype = explicit_wd or (
+            gpt_prec if gpt_prec in ("int8", "int4") else quant.get("weight_dtype", "int8"))
         self.gpt_dtype = _resolve_dtype(gpt_prec)
         self.vocoder_dtype = _resolve_dtype(voc_prec)
+        # fp8 KV cache: on with weight quantization unless kv_cache says
+        # otherwise ("bf16"), or asked for with kv_cache="fp8"
+        kv_pref = str(pick("kv_cache", "auto"))
+        if kv_pref == "fp8" or (kv_pref == "auto" and self.use_quantization):
+            self.kv_cache_dtype: Optional[torch.dtype] = torch.float8_e4m3fn
+        else:
+            self.kv_cache_dtype = None
         self.cfg_scale = float(pick("cfg_scale", 1.0))
         self.stop_mel_token = self.cfg.gpt.stop_mel_token
         self._rng_seed = seed if seed is not None else 0
@@ -137,7 +156,7 @@ class IndexTTS:
                     f"{path}: loading reference checkpoints is ROADMAP item A1b")
         warnings.warn(f"no checkpoints in {model_dir}; random weights")
         gen = lambda s: torch.Generator(device=self.device).manual_seed(s)  # noqa: E731
-        self.gpt_params = uv.init_params(self.cfg.gpt, gen(0), self.gpt_dtype, self.device)
+        self._set_gpt_params(uv.init_params(self.cfg.gpt, gen(0), self.gpt_dtype, self.device))
         self.bigvgan_params = bigvgan_model.init_params(
             self.cfg.bigvgan, gen(1), self.vocoder_dtype, self.device)
 
@@ -155,11 +174,26 @@ class IndexTTS:
             win_length=mel.win_length, n_mels=mel.n_mels)
         self.last_stats: Dict[str, Any] = {}
 
+    def _set_gpt_params(self, master: Dict[str, Any]) -> None:
+        """The GPT trees from float weights in gpt_dtype: `gpt_params` for the
+        single-row kernel and `gpt_params_batched` for beam decode and the
+        re-forward.  They differ only under int4: the fused layout, and the
+        shared-scale layout."""
+        self.gpt_params = master
+        self.gpt_params_batched = master
+        if self.use_quantization:
+            bits = 4 if self.quant_weight_dtype == "int4" else 8
+            self.gpt_params = quantization.quantize_gpt_params(master, bits=bits)
+            self.gpt_params_batched = (
+                quantization.quantize_gpt_params(master, bits=4, int4_layout="shared")
+                if bits == 4 else self.gpt_params)
+
     def load_numpy_params(self, gpt_tree: Any, bigvgan_tree: Any) -> None:
-        """Take the JAX package's parameter trees, as numpy arrays, for both
-        models (cast to this engine's precisions)."""
-        self.gpt_params = from_jax.gpt_params_from_numpy(
-            gpt_tree, self.cfg.gpt, self.gpt_dtype, self.device)
+        """Take the JAX package's float parameter trees, as numpy arrays, for
+        both models (cast to this engine's precisions, then quantized as its
+        precision keys say)."""
+        self._set_gpt_params(from_jax.gpt_params_from_numpy(
+            gpt_tree, self.cfg.gpt, self.gpt_dtype, self.device))
         self.bigvgan_params = from_jax.bigvgan_params_from_numpy(
             bigvgan_tree, self.cfg.bigvgan, self.vocoder_dtype, self.device)
 
@@ -178,15 +212,21 @@ class IndexTTS:
         return uv.get_conditioning(self.gpt_params, self.cfg.gpt,
                                    cond_mel.to(self.gpt_dtype), lengths)
 
-    def _decode_bucket(self, cond_latent, token_lists, generator,
-                       generation: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray, int]:
-        """Decode one sentence; text left-padded to a multiple of 16."""
+    def _text_inputs(self, token_lists) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Decode text tokens and mask [B, width] on the device: start/stop
+        added, left-padded to a multiple of 16."""
         prep = uv.prepare_text_prompt(token_lists, self.cfg.gpt.start_text_token,
                                       self.cfg.gpt.stop_text_token)
-        width = _round_up(prep.text_tokens.shape[1], 16)
-        pad = width - prep.text_tokens.shape[1]
+        pad = _round_up(prep.text_tokens.shape[1], 16) - prep.text_tokens.shape[1]
         tokens = np.pad(prep.text_tokens, ((0, 0), (pad, 0)))
         mask = np.pad(prep.attn_text, ((0, 0), (pad, 0)))
+        return (torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(mask, device=self.device))
+
+    def _decode_bucket(self, cond_latent, token_lists, generator,
+                       generation: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Decode one sentence."""
+        tokens_t, mask_t = self._text_inputs(token_lists)
         # reference decode default: num_beams=3 (infer.py:633); a cfg_scale
         # without an explicit num_beams switches to sampling
         cfg_scale = float(generation.get("cfg_scale", self.cfg_scale))
@@ -194,13 +234,7 @@ class IndexTTS:
             num_beams = 1
         else:
             num_beams = int(generation.get("num_beams", 3))
-        if num_beams > 1:
-            raise NotImplementedError(
-                f"num_beams={num_beams}: beam decode is ROADMAP item A8; pass num_beams=1")
-        result = uv.inference_speech(
-            self.gpt_params, self.cfg.gpt, cond_latent,
-            torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(mask, device=self.device), generator,
+        kwargs = dict(
             # the mel position table caps the generation budget
             max_new=min(int(generation.get("max_mel_tokens", 600)),
                         self.cfg.gpt.max_mel_tokens),
@@ -211,7 +245,27 @@ class IndexTTS:
             do_sample=bool(generation.get("do_sample", True)),
             typical_sampling=bool(generation.get("typical_sampling", False)),
             typical_mass=float(generation.get("typical_mass", 0.9)),
-            cache_dtype=self.gpt_dtype, cfg_scale=cfg_scale)
+            cache_dtype=self.gpt_dtype,
+            kv_dtype=generation.get("kv_dtype", self.kv_cache_dtype))
+        if num_beams > 1:
+            if cfg_scale != 1.0:
+                warnings.warn("cfg_scale is a sampling-mode feature; beam decode ignores "
+                              "it (set num_beams=1 to use guidance)", RuntimeWarning)
+            result = uv.inference_speech_beam(
+                self.gpt_params_batched, self.cfg.gpt, cond_latent, tokens_t, mask_t,
+                generator, num_beams=num_beams,
+                length_penalty=float(generation.get("length_penalty", 0.0)), **kwargs)
+        else:
+            # the decode-trunk kernel unless the caller opts out; it keeps the
+            # cache in the compute type unless kv_dtype is asked for, as the
+            # JAX engine does for its fused trunk
+            use_fused = bool(generation.get("use_fused_trunk", True))
+            if use_fused and generation.get("kv_dtype") is None:
+                kwargs["kv_dtype"] = None
+            result = uv.inference_speech(
+                self.gpt_params if use_fused else self.gpt_params_batched, self.cfg.gpt,
+                cond_latent, tokens_t, mask_t, generator, use_fused_trunk=use_fused,
+                cfg_scale=cfg_scale, **kwargs)
         return result.codes.cpu().numpy(), result.lengths.cpu().numpy(), result.steps
 
     def _latents(self, cond_latent, text_tokens: np.ndarray, text_len: int,
@@ -230,7 +284,7 @@ class IndexTTS:
         text_p[0, :text_len] = text_tokens[:text_len]
         dev = self.device
         lat = uv.latent_forward(
-            self.gpt_params, self.cfg.gpt, cond_latent, torch.as_tensor(text_p, device=dev),
+            self.gpt_params_batched, self.cfg.gpt, cond_latent, torch.as_tensor(text_p, device=dev),
             torch.tensor([text_len], device=dev), torch.as_tensor(codes_p, device=dev),
             torch.tensor([code_len], device=dev))
         return lat[0]  # [width, D], valid prefix = code_len
@@ -273,6 +327,7 @@ class IndexTTS:
         chunks: List[np.ndarray] = []
         decode_steps = 0
         code_lens: List[int] = []
+        sentence_codes: List[np.ndarray] = []
         has_warned = False
         for si, sent in enumerate(sentences):
             ids = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int32)
@@ -289,6 +344,7 @@ class IndexTTS:
                 has_warned = True
             code_len = int(lens[0])
             code_lens.append(code_len)
+            sentence_codes.append(codes[0, :code_len])
             t0 = time.perf_counter()
             latent = self._latents(cond_latent, ids, len(ids), codes[0], code_len)
             if self.device.type == "cuda":  # time the re-forward, not its enqueue
@@ -305,7 +361,7 @@ class IndexTTS:
         wav_seconds = sum(len(c) for c in chunks) / sampling_rate
         self.last_stats = {"rtf": total / max(wav_seconds, 1e-9), "total_s": total,
                            "wav_seconds": wav_seconds, "decode_steps": decode_steps,
-                           "code_lens": code_lens, **phase}
+                           "code_lens": code_lens, "codes": sentence_codes, **phase}
         s = self.last_stats
         if verbose:
             print(f">> {len(sentences)} sentences, {decode_steps} decode steps")

@@ -4,7 +4,9 @@ The port keeps the JAX package's parameter trees (nested dicts and lists,
 stacked GPT blocks, torch-layout conv weights), so loading a tree exported
 as numpy (``jax.tree.map(np.asarray, params)``, done by the caller) is a
 plain copy.  Each loader checks the tree against the port's own layout for
-the config before copying.
+the config before copying.  Quantized GPT leaves (ops/quantization.py:
+int8 ``{"q", "s"}``, fused int4 ``{"q4", "s"}``, shared int4 ``{"q4s", "s"}``)
+carry across as they are, int8 data and fp32 scales, after the same check.
 """
 
 from __future__ import annotations
@@ -18,7 +20,30 @@ from indextts_tpu_torch.config import BigVGANConfig, GPTConfig
 from indextts_tpu_torch.models import bigvgan, unified_voice
 
 
+def _quantized_leaf(tree: dict, like: torch.Tensor, device, path: str):
+    """A quantized leaf standing for the float matrix `like` [.., K, N]."""
+    *lead, K, N = like.shape
+    forms = {frozenset({"q", "s"}): ("q", K, 1), frozenset({"q4", "s"}): ("q4", K // 2, None),
+             frozenset({"q4s", "s"}): ("q4s", K // 2, 1)}
+    form = forms.get(frozenset(tree))
+    if form is None:
+        raise ValueError(f"{path}: keys {sorted(tree)} are no quantized form")
+    key, rows, srows = form
+    q, s = np.asarray(tree[key]), np.asarray(tree["s"])
+    if srows is None:   # fused int4: 2G scale rows, K splitting into G chunks of two halves
+        srows = s.shape[-2] if s.ndim == len(lead) + 2 and s.shape[-2] % 2 == 0 else -1
+        if srows <= 0 or K % srows:
+            raise ValueError(f"{path}.s: shape {s.shape} has no 2G rows dividing K={K}")
+    want_q, want_s = tuple(lead) + (rows, N), tuple(lead) + (srows, N)
+    if q.dtype != np.int8 or q.shape != want_q or s.shape != want_s:
+        raise ValueError(f"{path}: {key} {q.dtype} {q.shape} / s {s.shape}, expected int8 "
+                         f"{want_q} / {want_s}")
+    return {key: torch.tensor(q).to(device), "s": torch.tensor(s.astype(np.float32)).to(device)}
+
+
 def _convert(tree, like, dtype, device, path="params"):
+    if isinstance(tree, dict) and isinstance(like, torch.Tensor):
+        return _quantized_leaf(tree, like, device, path)
     if isinstance(like, dict):
         if not isinstance(tree, dict) or set(tree) != set(like):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__

@@ -17,6 +17,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from indextts_tpu_torch.ops import quantization
+
 NEG_INF = -1e9
 
 
@@ -101,11 +103,18 @@ class KVCache(NamedTuple):
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """q, k, v: [B, H, T, hd]; bias additive, broadcastable to [B, H, Tq, Tk].
-    Scores and softmax in fp32; the context in v's type."""
+    Scores and softmax in fp32; the context in q's type.  A cache stored
+    narrower than q (the fp8 tier) is upcast to q's type at the read."""
+    k, v = k.to(q.dtype), v.to(q.dtype)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores / math.sqrt(q.shape[-1]) + bias
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+# x [..., K] @ w [K, N] for plain, int8 and both int4 weight forms: one
+# implementation for the trunk, the heads and dequantize
+_mm = quantization.matmul_quant
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -121,14 +130,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def _block(hidden: torch.Tensor, blk: Dict[str, Any], heads: int, attend) -> torch.Tensor:
     """One transformer block; `attend` maps (q, k, v) -> context."""
     x = layer_norm(hidden, blk["ln_1"]["scale"], blk["ln_1"]["bias"])
-    qkv = x @ blk["attn"]["qkv_w"] + blk["attn"]["qkv_b"].to(x.dtype)
+    qkv = _mm(x, blk["attn"]["qkv_w"]) + blk["attn"]["qkv_b"].to(x.dtype)
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     ctx = attend(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads))
-    proj = _merge_heads(ctx) @ blk["attn"]["proj_w"]
+    proj = _mm(_merge_heads(ctx), blk["attn"]["proj_w"])
     hidden = hidden + proj + blk["attn"]["proj_b"].to(x.dtype)
     x = layer_norm(hidden, blk["ln_2"]["scale"], blk["ln_2"]["bias"])
-    h = gelu_new(x @ blk["mlp"]["fc_w"] + blk["mlp"]["fc_b"].to(x.dtype))
-    return hidden + h @ blk["mlp"]["proj_w"] + blk["mlp"]["proj_b"].to(x.dtype)
+    h = gelu_new(_mm(x, blk["mlp"]["fc_w"]) + blk["mlp"]["fc_b"].to(x.dtype))
+    return hidden + _mm(h, blk["mlp"]["proj_w"]) + blk["mlp"]["proj_b"].to(x.dtype)
 
 
 def _causal_bias(attention_mask: Optional[torch.Tensor], T: int,
@@ -173,16 +182,65 @@ def decode_step(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
                 position: int, attention_mask: torch.Tensor,
                 size: GPT2Size) -> Tuple[torch.Tensor, KVCache]:
     """Single-token incremental forward.  hidden [B, 1, D]; position: the slot
-    of this token's K/V (written into `cache` in place); attention_mask
-    [B, cache_len] with 1 on every valid slot including `position`.
-    Returns (ln_f output [B, 1, D], cache)."""
+    of this token's K/V (written into `cache` in place, in the cache's type);
+    attention_mask [B, cache_len] with 1 on every valid slot including
+    `position`.  Returns (ln_f output [B, 1, D], cache)."""
     bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0, NEG_INF).float()
     for l in range(size.layers):
         def attend(q, k, v, l=l):
             cache.k[l, :, :, position] = k[:, :, 0].to(cache.k.dtype)
             cache.v[l, :, :, position] = v[:, :, 0].to(cache.v.dtype)
-            return _attention(q, cache.k[l].to(q.dtype), cache.v[l].to(q.dtype), bias)
+            return _attention(q, cache.k[l], cache.v[l], bias)
 
         hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
     out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
     return out, cache
+
+
+def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KVCache,
+                        prefix_bias: torch.Tensor, suffix: KVCache, suffix_bias: torch.Tensor,
+                        step: int, size: GPT2Size, nb: int) -> Tuple[torch.Tensor, KVCache]:
+    """Beam decode step with no physical cache reorder.
+
+    The prompt prefix is cached once per request row (prefix [L, B, H, Pc,
+    hd]); each of the B*nb beams keeps the K/V it generated in its own suffix
+    row (suffix [L, B*nb, H, Sc, hd]).  Attention runs over the prefix and
+    over ALL nb suffix rows of the request, under the additive `suffix_bias`
+    [B, nb_q, nb_kv, Sc] that admits slot s of row m for beam n only where
+    row m owns slot s in beam n's lineage and s < step.  Prefix and suffix
+    scores join one fp32 softmax, prefix first.
+
+    hidden [B*nb, 1, D]; prefix_bias [B, 1, 1, Pc]; this token's K/V is
+    written at suffix slot step-1 of each row's own suffix, in place.
+    Returns (ln_f output [B*nb, 1, D], suffix)."""
+    Bnb = hidden.shape[0]
+    B = Bnb // nb
+    Sc = suffix.k.shape[3]
+    H, hd = size.heads, size.head_dim
+    sb = suffix_bias[:, :, :, None, :]              # [B, nbq, nbk, 1, Sc] (over H)
+    scale = 1.0 / math.sqrt(hd)
+    for l in range(size.layers):
+        def attend(q, k, v, l=l):
+            # q, k, v [B*nb, H, 1, hd]
+            suffix.k[l, :, :, step - 1] = k[:, :, 0].to(suffix.k.dtype)
+            suffix.v[l, :, :, step - 1] = v[:, :, 0].to(suffix.v.dtype)
+            cd = q.dtype
+            kp, vp = prefix.k[l].to(cd).float(), prefix.v[l].to(cd).float()   # [B,H,Pc,hd]
+            ks = suffix.k[l].to(cd).float().view(B, nb, H, Sc, hd)
+            vs = suffix.v[l].to(cd).float().view(B, nb, H, Sc, hd)
+            qh = q[:, :, 0, :].float().view(B, nb, H, hd)
+            sp = torch.einsum("bnhd,bhpd->bnhp", qh, kp) * scale + prefix_bias
+            ss = torch.einsum("bnhd,bmhsd->bnmhs", qh, ks) * scale + sb
+            Pc = sp.shape[-1]
+            flat = torch.cat([sp, ss.permute(0, 1, 3, 2, 4).reshape(B, nb, H, nb * Sc)],
+                             dim=-1)
+            probs = torch.softmax(flat, dim=-1)
+            pp = probs[..., :Pc].to(cd).float()
+            ps = probs[..., Pc:].to(cd).float().view(B, nb, H, nb, Sc)
+            ctx = (torch.einsum("bnhp,bhpd->bnhd", pp, vp)
+                   + torch.einsum("bnhms,bmhsd->bnhd", ps, vs))
+            return ctx.reshape(Bnb, H, 1, hd).to(cd)
+
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return out, suffix

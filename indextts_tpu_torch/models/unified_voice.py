@@ -3,8 +3,11 @@
 
 A GPT-2 trunk with learned per-stream position embeddings, a conformer ->
 perceiver conditioning encoder producing 32 latents, and a mel head.  The
-single-row decode runs the trunk through ops/cuda/decode_layer.py: the
-hand-written kernels for CUDA tensors, their plain version on the CPU.
+single-row decode runs the trunk through ops/cuda/decode_layer.py (K2), and
+beam decode under reorder="pallas" reorders its cache through
+ops/cuda/permute.py (K3): the hand-written kernels for CUDA tensors, their
+plain versions on the CPU.  Trunk and head matrices may be quantized
+(ops/quantization.py).
 
 Reference quirk kept on purpose: the n-th generated mel token sits at mel
 position n+1 (HF's position bookkeeping, gpt/model.py:164-167); checkpoints
@@ -13,7 +16,7 @@ are trained against this numbering.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,8 +24,11 @@ import torch
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models import conformer, gpt2, perceiver
 from indextts_tpu_torch.models.gpt2 import GPT2Size, layer_norm
-from indextts_tpu_torch.ops import sampling
+from indextts_tpu_torch.ops import beam as beam_lib
+from indextts_tpu_torch.ops import quantization, sampling
 from indextts_tpu_torch.ops.cuda.decode_layer import flatten_cache, fused_decode_trunk_flat
+from indextts_tpu_torch.ops.cuda.permute import (as_bits, permute_cache_rows,
+                                                  permute_cache_rows_plain)
 
 
 def trunk_size(cfg: GPTConfig) -> GPT2Size:
@@ -95,10 +101,14 @@ def get_conditioning(params: Dict[str, Any], cfg: GPTConfig, cond_mel: torch.Ten
     return perceiver.forward(params["perceiver_encoder"], enc, mask, perceiver_size(cfg))
 
 
+# the heads take every weight form the trunk does
+_head_mm = quantization.matmul_quant
+
+
 def _lm_head(params, hidden):
     """final_norm + mel head (reference lm_head, gpt/model.py:56)."""
     h = layer_norm(hidden, params["final_norm"]["scale"], params["final_norm"]["bias"])
-    return h @ params["mel_head"]["kernel"] + params["mel_head"]["bias"]
+    return _head_mm(h, params["mel_head"]["kernel"]) + params["mel_head"]["bias"]
 
 
 def latent_forward(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
@@ -170,44 +180,63 @@ class DecodeResult(NamedTuple):
     steps: int              # trunk decode steps run after the prefill
 
 
-def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
-                     text_tokens: torch.Tensor, text_mask: torch.Tensor,
-                     generator: Optional[torch.Generator] = None, max_new: int = 600,
-                     temperature: float = 1.0, top_k: int = 30, top_p: float = 0.8,
-                     repetition_penalty: float = 10.0, do_sample: bool = True,
-                     typical_sampling: bool = False, typical_mass: float = 0.9,
-                     cache_dtype=None, cfg_scale: float = 1.0) -> DecodeResult:
-    """Autoregressive mel-code generation for one row (replaces HF generate,
-    gpt/model.py:669-720): prefill of [cond | text | start_mel], then one
-    trunk step per token until every row stopped or `max_new` codes exist.
-    text_tokens/text_mask [1, L+2] from prepare_text_prompt."""
-    if float(cfg_scale) != 1.0:
-        raise NotImplementedError("classifier-free guidance (cfg_scale != 1) is "
-                                  "ROADMAP item A11")
-    B, Ltot = text_tokens.shape
-    if B != 1 or cond_latent.shape[0] != 1:
-        raise NotImplementedError("batched decode (more than one row) is ROADMAP item A11")
-    size = trunk_size(cfg)
+def _prefill_inputs(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
+                    text_tokens: torch.Tensor, text_mask: torch.Tensor):
+    """Prefill embeddings [B, P, D] of [cond | text | start_mel] and their
+    mask [B, P]; text positions count from each row's first valid slot."""
+    B = text_tokens.shape[0]
     dev = cond_latent.device
-    cache_dtype = cache_dtype or params["gpt"]["blocks"]["attn"]["qkv_w"].dtype
-    cond_len = cond_latent.shape[1]
-
-    # prefill embeddings; text positions count from the first valid slot
+    if cond_latent.shape[0] == 1 and B > 1:
+        cond_latent = cond_latent.expand(B, -1, -1)
     tpos = (torch.cumsum(text_mask, dim=1) - 1).clamp(0, cfg.max_text_seq_len - 1)
     text_emb = (params["text_embedding"]["weight"][text_tokens]
                 + params["text_pos_embedding"]["weight"][tpos])
     text_emb = text_emb * text_mask[..., None].to(text_emb.dtype)
     start_emb = (params["mel_embedding"]["weight"][cfg.start_mel_token]
                  + params["mel_pos_embedding"]["weight"][0])
-    prefill_emb = torch.cat([cond_latent.to(text_emb.dtype), text_emb,
-                             start_emb.expand(B, 1, cfg.model_dim)], dim=1)
-    P = cond_len + Ltot + 1
+    emb = torch.cat([cond_latent.to(text_emb.dtype), text_emb,
+                     start_emb.expand(B, 1, cfg.model_dim)], dim=1)
+    mask = torch.cat([torch.ones(B, cond_latent.shape[1], dtype=torch.int32, device=dev),
+                      text_mask.to(torch.int32),
+                      torch.ones(B, 1, dtype=torch.int32, device=dev)], dim=1)
+    return emb, mask
+
+
+def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
+                     text_tokens: torch.Tensor, text_mask: torch.Tensor,
+                     generator: Optional[torch.Generator] = None, max_new: int = 600,
+                     temperature: float = 1.0, top_k: int = 30, top_p: float = 0.8,
+                     repetition_penalty: float = 10.0, do_sample: bool = True,
+                     typical_sampling: bool = False, typical_mass: float = 0.9,
+                     cache_dtype=None, use_fused_trunk: bool = True, kv_dtype=None,
+                     cfg_scale: float = 1.0) -> DecodeResult:
+    """Autoregressive mel-code generation for one row (replaces HF generate,
+    gpt/model.py:669-720): prefill of [cond | text | start_mel], then one
+    trunk step per token until every row stopped or `max_new` codes exist.
+    text_tokens/text_mask [1, L+2] from prepare_text_prompt.
+
+    use_fused_trunk: each step through the decode-trunk kernel (K2) over a
+    flat cache, which takes plain, int8 and fused-int4 weights; otherwise
+    through gpt2.decode_step over the 5-D cache (any weight form, the
+    shared int4 layout included).  kv_dtype: the cache's storage type
+    (default cache_dtype), e.g. torch.float8_e4m3fn."""
+    if float(cfg_scale) != 1.0:
+        raise NotImplementedError("classifier-free guidance (cfg_scale != 1) is "
+                                  "ROADMAP item A11")
+    B, Ltot = text_tokens.shape
+    if B != 1 or cond_latent.shape[0] != 1:
+        raise NotImplementedError("batched decode (more than one row) is ROADMAP item A11")
+    params = quantization.nativize_int4(params)
+    size = trunk_size(cfg)
+    dev = cond_latent.device
+    cache_dtype = cache_dtype or params["gpt"]["ln_f"]["scale"].dtype
+
+    prefill_emb, prefill_mask = _prefill_inputs(params, cfg, cond_latent, text_tokens,
+                                                text_mask)
+    P = prefill_emb.shape[1]
     cache_len = -(-(P + max_new) // 8) * 8
-    prefill_mask = torch.cat([torch.ones(B, cond_len, dtype=torch.int32, device=dev),
-                              text_mask.to(torch.int32),
-                              torch.ones(B, 1, dtype=torch.int32, device=dev)], dim=1)
     hidden, cache = gpt2.prefill(params["gpt"], prefill_emb.to(cache_dtype), prefill_mask,
-                                 size, cache_len)
+                                 size, cache_len, kv_dtype=kv_dtype)
     logits = _lm_head(params, hidden[:, -1])
 
     full_mask = torch.zeros(B, cache_len, dtype=torch.int32, device=dev)
@@ -223,8 +252,9 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     codes = torch.full((B, max_new), cfg.stop_mel_token, dtype=torch.int32, device=dev)
     codes[:, 0] = tok
 
-    k_flat, v_flat = flatten_cache(cache)
-    del cache
+    if use_fused_trunk:
+        k_flat, v_flat = flatten_cache(cache)
+        del cache
     ln_f = params["gpt"]["ln_f"]
     step = 1
     while step < max_new and not bool(finished.all()):
@@ -234,9 +264,14 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
                + params["mel_pos_embedding"]["weight"][mel_pos])[:, None, :]
         slot = P + step - 1
         full_mask[:, slot] = 1
-        pre, k_flat, v_flat = fused_decode_trunk_flat(
-            params["gpt"], emb.to(cache_dtype), k_flat, v_flat, slot, full_mask, cfg.heads)
-        hidden = layer_norm(pre, ln_f["scale"], ln_f["bias"])
+        if use_fused_trunk:
+            pre, k_flat, v_flat = fused_decode_trunk_flat(
+                params["gpt"], emb.to(cache_dtype), k_flat, v_flat, slot, full_mask,
+                cfg.heads)
+            hidden = layer_norm(pre, ln_f["scale"], ln_f["bias"])
+        else:
+            hidden, cache = gpt2.decode_step(params["gpt"], emb.to(cache_dtype), cache, slot,
+                                             full_mask, size)
         logits = _lm_head(params, hidden[:, 0])
         tok, presence, finished = sampling.sample_step(logits, presence, finished, **samp)
         codes[:, step] = tok
@@ -245,4 +280,158 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     is_stop = codes == cfg.stop_mel_token
     first_stop = torch.argmax(is_stop.int(), dim=1)
     lengths = torch.where(is_stop.any(dim=1), first_stop, max_new)
+    return DecodeResult(codes, lengths, finished, step - 1)
+
+
+# beam decode (reference default: generate(num_beams=3, do_sample=True),
+# infer.py:628-635, HF beam_sample)
+REORDERS = ("lineage", "dslice", "pallas", "always", "onehot", "full", "none")
+
+
+def _reorder_suffix(reorder: str, suffix: gpt2.KVCache, rows: torch.Tensor,
+                    spare: Optional[gpt2.KVCache]) -> Tuple[gpt2.KVCache, Optional[gpt2.KVCache]]:
+    """The suffix cache with its rows taken from `rows` (absolute [B*nb]),
+    under a physical reorder strategy.  Returns (suffix', spare')."""
+    if reorder == "dslice":        # one single-row slice per row, concatenated
+        def pick(x):
+            b = as_bits(x)
+            return torch.cat([b.index_select(1, rows[n:n + 1]) for n in range(rows.shape[0])],
+                             dim=1).view(x.dtype)
+        return gpt2.KVCache(pick(suffix.k), pick(suffix.v)), spare
+    if reorder == "pallas":        # K3, out of place into the spare pair, then swap
+        k2, v2 = permute_cache_rows(suffix.k, suffix.v, rows, spare.k, spare.v)
+        return gpt2.KVCache(k2, v2), suffix
+    if reorder in ("always", "full"):  # plain row gathers
+        return gpt2.KVCache(*permute_cache_rows_plain(suffix.k, suffix.v, rows)), spare
+    if reorder == "onehot":        # the permutation as a matmul over rows
+        W = torch.nn.functional.one_hot(rows, rows.shape[0]).float()
+        perm = lambda x: torch.einsum("nb,lbhtd->lnhtd", W, x.float()).to(x.dtype)  # noqa: E731
+        return gpt2.KVCache(perm(suffix.k), perm(suffix.v)), spare
+    raise ValueError(f"unknown reorder strategy: {reorder!r}")
+
+
+def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
+                          text_tokens: torch.Tensor, text_mask: torch.Tensor,
+                          generator: Optional[torch.Generator] = None, max_new: int = 600,
+                          num_beams: int = 3, temperature: float = 1.0, top_k: int = 30,
+                          top_p: float = 0.8, repetition_penalty: float = 10.0,
+                          do_sample: bool = True, typical_sampling: bool = False,
+                          typical_mass: float = 0.9, cache_dtype=None,
+                          reorder: str = "lineage", kv_dtype=None,
+                          length_penalty: float = 0.0, gumbel=None) -> DecodeResult:
+    """Beam(-sample) mel-code generation with HF 4.44 semantics (ops/beam.py
+    flat_scores): log_softmax -> processors -> + beam scores -> per-beam
+    warpers -> draw 2*nb candidates -> bank the finished, continue the best
+    nb.  Any B >= 1 rows of left-padded text, nb >= 1 beams each.
+
+    Split KV cache: the prompt prefix [cond | text | start] is the same for a
+    row's nb beams, so it is prefilled once per row ([L, B, H, Pc, hd],
+    Pc = P rounded up to 64); only the generated suffix lives per beam
+    ([L, B*nb, H, Sc, hd], Sc = max_new rounded up to 64), and each step is
+    gpt2.decode_step_lineage.  `reorder` picks how a step follows the beam
+    parents, under the JAX package's names:
+      lineage  no physical reorder: an ancestry map anc[b, i, s] (the suffix
+               row owning slot s in beam i's lineage) masks attention over
+               all rows' suffixes (the default);
+      pallas   the hand-written row-permute kernel (K3, ops/cuda/permute.py)
+               into a second pair of suffix buffers, swapped each step;
+      always, full   plain index_select row gathers;
+      dslice   one single-row slice per row, concatenated;
+      onehot   the permutation as a one-hot matmul over rows;
+      none     no reorder at all: a diagnostic, wrong results.
+    The physical strategies attend with an identity owner map.
+
+    generator: the sampling noise's source.  gumbel: indexable by step, each
+    entry [B, nb*V], replacing the noise of that step (the tests feed the
+    JAX package's draws).  Returns codes, lengths and whether the winning
+    hypothesis stopped; `steps` counts the trunk steps after the prefill."""
+    if reorder not in REORDERS:
+        raise ValueError(f"unknown reorder strategy: {reorder!r}")
+    params = quantization.nativize_int4(params)
+    size = trunk_size(cfg)
+    B = text_tokens.shape[0]
+    nb = num_beams
+    V = cfg.number_mel_codes
+    dev = cond_latent.device
+    cache_dtype = cache_dtype or params["gpt"]["ln_f"]["scale"].dtype
+    store = kv_dtype or cache_dtype
+
+    prefill_emb, prefill_mask = _prefill_inputs(params, cfg, cond_latent, text_tokens,
+                                                text_mask)
+    P = prefill_emb.shape[1]
+    # 64-aligned as in the JAX package; slots past P and step are never unmasked
+    prefix_len = -(-P // 64) * 64
+    suffix_len = -(-max_new // 64) * 64
+    # the prefill runs on B rows, not B*nb: the beams share it
+    hidden, prefix = gpt2.prefill(params["gpt"], prefill_emb.to(cache_dtype), prefill_mask,
+                                  size, prefix_len, kv_dtype=kv_dtype)
+    logits0 = _lm_head(params, hidden[:, -1]).repeat_interleave(nb, dim=0)   # [B*nb, V]
+
+    pmask = torch.zeros(B, prefix_len, dtype=torch.bool, device=dev)
+    pmask[:, :P] = prefill_mask.bool()
+    prefix_bias = torch.where(pmask, 0.0, gpt2.NEG_INF).float()[:, None, None, :]
+    suffix = gpt2.KVCache.zeros(size, B * nb, suffix_len, store, dev)
+    spare = gpt2.KVCache.zeros(size, B * nb, suffix_len, store, dev) if reorder == "pallas" \
+        else None
+    presence = sampling.init_penalty_presence(V, B * nb, prompt_token_ids=(1,),
+                                              start_token=cfg.start_mel_token, device=dev)
+    state = beam_lib.init_beam_state(B, nb, max_new, dev)
+    seqs = torch.zeros(B, nb, max_new, dtype=torch.int32, device=dev)
+    beam_ids = torch.arange(nb, dtype=torch.int32, device=dev)
+    anc = torch.zeros(B, nb, suffix_len, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    batch_rows = torch.arange(B, device=dev)[:, None] * nb
+
+    def select(logits, step, has_cache):
+        nonlocal state, seqs, presence, suffix, spare, anc, done
+        flat = beam_lib.flat_scores(logits, presence, state.scores, nb,
+                                    temperature=temperature, top_k=top_k, top_p=top_p,
+                                    repetition_penalty=repetition_penalty,
+                                    typical_sampling=typical_sampling,
+                                    typical_mass=typical_mass, do_sample=do_sample)
+        state, parent, token, seqs, best_cand = beam_lib.beam_step(
+            flat, nb, state, seqs, step, cfg.stop_mel_token, do_sample,
+            length_penalty=length_penalty, done=done, generator=generator,
+            gumbel=None if gumbel is None else gumbel[step])
+        # latch HF's _done after the step's banking (beam_search.py:300-306)
+        done = done | beam_lib.batch_done(state, step, best_cand, length_penalty)
+        rows = (batch_rows + parent).reshape(-1)                  # absolute [B*nb]
+        if reorder == "lineage":
+            if has_cache:
+                anc = torch.gather(anc, 1, parent[:, :, None].expand(B, nb, suffix_len))
+        elif reorder != "none" and has_cache:   # the first select has no suffix yet
+            suffix, spare = _reorder_suffix(reorder, suffix, rows, spare)
+        tok = token.reshape(-1)
+        presence = presence[rows]
+        presence[torch.arange(B * nb, device=dev), tok.long()] = True
+        return tok
+
+    tok = select(logits0, 0, has_cache=False)
+    step = 1
+    valid_slots = torch.arange(suffix_len, device=dev)
+    while step < max_new and not bool(done.all()):
+        mel_pos = min(step + 1, cfg.max_mel_seq_len - 1)
+        emb = (params["mel_embedding"]["weight"][tok.long()]
+               + params["mel_pos_embedding"]["weight"][mel_pos])[:, None, :]
+        if reorder == "lineage":
+            anc[:, :, step - 1] = beam_ids          # each row owns the slot it writes
+            owner = anc
+        else:                                       # each beam's history is in its row
+            owner = beam_ids[None, :, None].expand(B, nb, suffix_len)
+        owns = owner[:, :, None, :] == beam_ids[None, None, :, None]
+        suffix_bias = torch.where(owns & (valid_slots < step), 0.0, gpt2.NEG_INF).float()
+        hidden, suffix = gpt2.decode_step_lineage(
+            params["gpt"], emb.to(cache_dtype), prefix, prefix_bias, suffix, suffix_bias,
+            step, size, nb)
+        logits = _lm_head(params, hidden[:, 0])
+        tok = select(logits, step, has_cache=True)
+        step += 1
+
+    best_seq, best_len, finished = beam_lib.finalize(state, seqs, step,
+                                                     length_penalty=length_penalty, done=done)
+    # banked sequences carry the stop at position len-1; running beams carry
+    # `step` valid tokens and no stop
+    lengths = torch.where(finished, best_len - 1, best_len).clamp(0, max_new)
+    codes = torch.where(torch.arange(max_new, device=dev)[None, :] < lengths[:, None],
+                        best_seq, cfg.stop_mel_token)
     return DecodeResult(codes, lengths, finished, step - 1)

@@ -19,7 +19,8 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG / "csrc" / "anti_alias.cu", _PKG / "csrc" / "decode_layer.cu")
+SOURCES = (_PKG / "csrc" / "anti_alias.cu", _PKG / "csrc" / "decode_layer.cu",
+           _PKG / "csrc" / "permute.cu")
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,9 +31,14 @@ _I = ctypes.c_int
 # argtypes of every C entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
     "anti_alias_activation": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
-    "decode_trunk_step": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-                          + [_P] * 12 + [_P, _P]),
+    # forms, hidden, out, k, v, mask, pos, L, D, H, T; ln1; qkv (w, s, groups,
+    # bias); proj; ln2; fc; mproj; scratch, stream
+    "decode_trunk_step": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                          + [_P, _P] + [_P, _P, _I, _P] * 2 + [_P, _P]
+                          + [_P, _P, _I, _P] * 2 + [_P, _P]),
     "decode_trunk_scratch_floats": (ctypes.c_longlong, [_I, _I, _I]),
+    "fp8_e4m3_roundtrip": (_I, [_P, _P, _P, _I, _P]),
+    "permute_cache_rows": (_I, [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

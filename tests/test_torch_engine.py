@@ -1,6 +1,7 @@
 """PyTorch port, engine: `IndexTTS.infer` against the JAX engine on the same
-weights (greedy, num_beams=1), the device rule of the entry point, and the
-port's independence from JAX and from the JAX package."""
+weights (greedy, num_beams=1 and the default beam-3), the device rule of the
+entry point, and the port's independence from JAX and from the JAX
+package."""
 
 import ast
 import os
@@ -45,7 +46,9 @@ GEN = dict(num_beams=1, do_sample=False, max_mel_tokens=12,
 
 
 @pytest.fixture(scope="module")
-def engines(tmp_path_factory):
+def model(tmp_path_factory):
+    """A model directory with the tiny config, the vocabulary and a prompt
+    wav, and one numpy-seeded float parameter set for each model."""
     d = tmp_path_factory.mktemp("model")
     cfg = JaxConfig.from_dict(MODEL)
     cfg.save(str(d / "config.yaml"))
@@ -55,16 +58,20 @@ def engines(tmp_path_factory):
     noise = np.random.default_rng(0).standard_normal(t.shape)
     wavfile.write(str(d / "prompt.wav"), sr,
                   ((0.3 * np.sin(2 * np.pi * 220 * t) + 0.02 * noise) * 32767).astype(np.int16))
-
-    # both engines take one numpy-seeded parameter set: the JAX engine through
-    # its own random-init call, the port through load_numpy_params
     gpt_np = numpy_params(
         jax.eval_shape(lambda: jax_uv.init_params(jax.random.PRNGKey(0), cfg.gpt)), 1,
         lambda s: 1.0 / np.sqrt(s[-2]))
     bv_np = numpy_params(
         jax.eval_shape(lambda: jax_bigvgan.init_params(jax.random.PRNGKey(1), cfg.bigvgan)),
         2, lambda s: 0.5 / np.sqrt(s[-2] * s[-1]))
-    fp32 = {"gpt": "fp32", "vocoder": "fp32"}
+    return d, gpt_np, bv_np
+
+
+def build_engines(model, precision):
+    """A JAX and a port engine under one precision config, both on the
+    model's weights: the JAX engine through its own random-init call, the
+    port through load_numpy_params."""
+    d, gpt_np, bv_np = model
     with warnings.catch_warnings(), pytest.MonkeyPatch.context() as mp:
         warnings.simplefilter("ignore")
         mp.setattr(jax_uv, "init_params",
@@ -72,11 +79,17 @@ def engines(tmp_path_factory):
         mp.setattr(jax_bigvgan, "init_params",
                    lambda key, c, dtype=jnp.float32: jax.tree.map(jnp.asarray, bv_np))
         jeng = jax_engine.IndexTTS(cfg_path=str(d / "config.yaml"), model_dir=str(d),
-                                   is_fp16=False, precision_config=fp32)
+                                   is_fp16=False, precision_config=precision)
         teng = torch_engine.IndexTTS(cfg_path=str(d / "config.yaml"), model_dir=str(d),
-                                     device="cpu", is_fp16=False, precision_config=fp32)
+                                     device="cpu", is_fp16=False, precision_config=precision)
     teng.load_numpy_params(gpt_np, bv_np)
-    return jeng, teng, d
+    return jeng, teng
+
+
+@pytest.fixture(scope="module")
+def engines(model):
+    jeng, teng = build_engines(model, {"gpt": "fp32", "vocoder": "fp32"})
+    return jeng, teng, model[0]
 
 
 def test_greedy_codes_match_jax(engines):
@@ -111,13 +124,53 @@ def test_infer_wav_matches_jax(engines, tmp_path):
     assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
 
 
+def test_default_beam_infer_matches_jax(engines, tmp_path):
+    """The reference default, num_beams=3 (greedy here): the beam codes of
+    each sentence equal the JAX engine's, and the wavs agree."""
+    jeng, teng, d = engines
+    mel = teng._prompt_mel(str(d / "prompt.wav"))
+    cond_np = np.asarray(jeng._conditioning(jnp.asarray(mel.numpy()), None))
+    gen = dict(do_sample=False, max_mel_tokens=12)
+    for sent in teng.tokenizer.split_sentences(teng.tokenizer.tokenize(TEXT), 20):
+        ids = np.asarray(teng.tokenizer.convert_tokens_to_ids(sent), np.int32)
+        jcodes, jlens = jeng._decode_bucket(jnp.asarray(cond_np), [ids],
+                                            jax.random.PRNGKey(0), dict(gen))
+        tcodes, tlens, steps = teng._decode_bucket(torch.tensor(cond_np), [ids], None,
+                                                   dict(gen))
+        np.testing.assert_array_equal(tcodes, jcodes)
+        np.testing.assert_array_equal(tlens, jlens)
+        assert steps >= 1
+    prompt = str(d / "prompt.wav")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jeng.infer(prompt, TEXT, str(tmp_path / "jax.wav"), max_text_tokens_per_sentence=20,
+                   **gen)
+        teng.infer(prompt, TEXT, str(tmp_path / "torch.wav"), max_text_tokens_per_sentence=20,
+                   **gen)
+    _, ref = wavfile.read(str(tmp_path / "jax.wav"))
+    _, got = wavfile.read(str(tmp_path / "torch.wav"))
+    assert got.shape == ref.shape == (sum(teng.last_stats["code_lens"]) * 1024,)
+    assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 4
+
+
+def test_default_infer_returns_a_wav(engines):
+    """No generation arguments: beam-3 sampling, the reference default."""
+    _, teng, d = engines
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sr, wav = teng.infer(str(d / "prompt.wav"), "你好。", None, seed=1)
+    assert sr == 24000 and wav.dtype == np.int16
+    assert wav.shape == (teng.last_stats["code_lens"][0] * 1024, 1)
+    assert teng.last_stats["decode_steps"] >= 1
+
+
 def test_unported_options_raise(engines):
     _, teng, d = engines
     prompt = str(d / "prompt.wav")
-    with pytest.raises(NotImplementedError, match="A8"):
-        teng.infer(prompt, "你好。", None)                 # reference default num_beams=3
     with pytest.raises(NotImplementedError, match="A11"):
         teng.infer(prompt, "你好。", None, num_beams=1, cfg_scale=2.0)
+    with pytest.raises(NotImplementedError, match="A1b"):
+        teng.infer(prompt, "你好。", None, speaker_id="someone")
 
 
 def test_cli_writes_a_wav(engines, tmp_path):
@@ -143,7 +196,9 @@ def test_default_device_is_cuda_and_raises_without_it(engines):
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     code = ("import sys; before = set(sys.modules); import indextts_tpu_torch.engine, "
-            "indextts_tpu_torch.cli; new = set(sys.modules) - before; "
+            "indextts_tpu_torch.cli, indextts_tpu_torch.ops.beam, "
+            "indextts_tpu_torch.ops.quantization, indextts_tpu_torch.ops.cuda.permute, "
+            "indextts_tpu_torch.ops.cuda.decode_layer; new = set(sys.modules) - before; "
             "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
             "'indextts_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
