@@ -19,12 +19,19 @@
      against torch's cast, bit for bit.
    - K3, the beam-cache row permute, bit-exact against index_select (also
      timed: `library_ms`) at the flagship beam-3 suffix in bf16 and fp8.
+   - K4, the continuous pool's step, at S = 64 and S = 8 pool rows (T = 768)
+     on bf16 weights over a bf16 cache and int8 weights over an e4m3 cache,
+     and fp32 at width 128, with planted faults (a position off by one, two
+     masks swapped, int8 scales dropped) and a masked row that must stay
+     finite; timed beside the plain torch `decode_step_rows`.
 3. Greedy beam-3 decode at full width under reorder="pallas" (K3) and
    reorder="full" (index_select): the codes must be equal, and K3 must
    launch once per step.
 4. Runs the main paths on a small fp32 model twice, on the card (kernels)
    and on the CPU (plain versions), and holds codes and wavs together:
-   sampling and default beam decode, and int8 and int4 weights.
+   sampling and default beam decode, and int8 and int4 weights; and the
+   continuous pool through K4 with staged refill, whose greedy codes must
+   equal the CPU pool's, single-row decode's and the card's pool without K4.
 5. Synthesizes requests through `IndexTTS.infer` at the full flagship width
    with random weights from a fixed seed: PR 1's three sampling requests;
    one with no generation arguments (beam-3 sampling, the reference
@@ -32,10 +39,22 @@
    one default-beam request on the int8 engine.  Checks the wavs (int16,
    code_len * 1024 samples) and each path's kernel launches (K1 109 times
    per vocode, K2 once per single-row decode step, none on beam paths).
-6. Prints a `{"kernels": [...]}` line (K2 one entry per tier), the card
+6. Serves concurrent HTTP requests at the full width through `serve()` with
+   the continuous pool on K4 (8 slots), on the bf16 engine and on the int8
+   engine (e4m3 cache): every response a 24 kHz int16 wav, K4 once per pool
+   step, K1 109 times per vocoder call, and a seeded request's codes the same
+   alone and among seven others; a profile of two 16-step ticks of the full
+   pool.
+7. Prints a `{"kernels": [...]}` line (K2 and K4 one entry per tier), the card
    line, and as the last line `{"ok": true, "device": {...}}`.  Any failed
    check exits non-zero before that line.  Without CUDA it exits non-zero
    at once.
+
+    python3 chip_smoke.py --dp 4
+
+runs only the data-parallel check on a machine with four cards:
+`create_batcher(dp=4)`, one pool per card through K4, against one pool's
+greedy codes on a small fp32 model; then the card line and the last line.
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 on the tensor cores, dense
 N_CODES = 256               # a 200-code sentence, bucketed to 64 codes
 K1_PER_VOCODE = 109         # anti-aliased activations in one flagship vocode
 K1_FLOPS_PER_ELEM = 56      # 24 FMAs (up) + 24 (down) as flops, 8 for the two snakes
@@ -108,6 +128,13 @@ def cuda_ms(fn, arg_sets, iters: int, graph: bool = True) -> float:
         end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def peak_flops(torch, dtype) -> float:
+    """The card's peak rate for products whose operands are `dtype`, the
+    type the TPU kernel multiplies in: bf16 on the tensor cores, fp32
+    outside them."""
+    return BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
 
 
 def check(name: str, err: float, tol: float, **extra) -> None:
@@ -367,7 +394,8 @@ def decode_tier_checks(torch, k2, plain, quantization, tiers, hidden, k0, v0):
                 live = int(mask[0, : pos + 1].sum().item())
                 moved, flops, wbytes = trunk_bytes_flops(tp, L, D, pos, live,
                                                          kc0.element_size())
-                bb, bo = moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+                bb = moved / HBM_BYTES_PER_S * 1e3
+                bo = flops / peak_flops(torch, hidden.dtype) * 1e3
                 timing.update(bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else
                               "operations", weight_bytes=wbytes, bytes_moved=moved)
             max_err = max(max_err, err)
@@ -394,6 +422,158 @@ def decode_tier_checks(torch, k2, plain, quantization, tiers, hidden, k0, v0):
                             "tolerance": "1 bf16 ulp of max|plain| per position"})
         del weight_faults
     return entries
+
+
+def pool_inputs(torch, S: int, T: int, device):
+    """Pool-step positions spread over [T/2, T-1] and their masks: left-pad
+    holes of 0-5 slots, a hole further on in every third row, and row 1
+    masked everywhere (a slot that never held a request), all zero past each
+    position."""
+    pos = T // 2 + (torch.arange(S, device=device) * 97) % (T // 2)
+    slots = torch.arange(T, device=device)
+    mask = (slots[None, :] <= pos[:, None]).to(torch.int32)
+    for s in range(S):
+        mask[s, 2: 2 + s % 6] = 0
+        if s % 3 == 0:
+            mask[s, T // 4: T // 4 + 17] = 0
+    mask[1] = 0
+    return pos.to(torch.int32), mask
+
+
+def pool_bytes_flops(params, L: int, D: int, positions, mask, cache_itemsize: int,
+                     act_itemsize: int):
+    """Bytes a pool step must move (every weight and scale once, each row's
+    cache slots [0, pos] and mask once, hidden in and out, the new K/V rows
+    written) and its flops (the products, and attention over the live slots
+    of each row)."""
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+
+    S = positions.shape[0]
+    slots = int((positions.long() + 1).sum().item())
+    weight_bytes = nbytes(params["blocks"])
+    moved = (weight_bytes + 2 * L * slots * D * cache_itemsize + slots * 4
+             + 2 * S * D * act_itemsize + 2 * L * S * D * cache_itemsize)
+    flops = 2 * 12 * D * D * L * S + 4 * slots * D * L
+    return moved, flops, weight_bytes
+
+
+def kernel_checks_pool(torch, gpt2, pool_trunk, quantization):
+    """K4 at full width (24 layers, 1280 wide, 20 heads, T = 768) for S = 64
+    and S = 8: bf16 weights over a bf16 cache (the bf16 engine's pool) and
+    int8 weights over an e4m3 cache (the int8 engine's pool), within 1 bf16
+    ulp of max|plain|; fp32 at width 128.  Planted faults (one row's position
+    off by one, two rows' masks swapped, int8 scales dropped) must land
+    beyond the tolerance, and the masked row must stay finite.  Each tier is
+    timed as graph replay and eager calls, with the plain version and the
+    plain torch `decode_step_rows` over a head-split cache beside it.
+    Returns the two full-width tiers' kernels-line entries (timed at S = 8,
+    the served pool's width)."""
+    k4 = pool_trunk.fused_pool_step
+    plain = pool_trunk.pool_step_plain
+    entries = {}
+    cases = [(S, T, dt) for S in (64, 8) for T, dt in ((768, torch.bfloat16),)] \
+        + [(16, 264, torch.float32)]
+    for S, T, dtype in cases:
+        L, D = (24, 1280) if dtype == torch.bfloat16 else (2, 128)
+        H = D // 64
+        params, k0, v0, _ = decode_inputs(torch, gpt2, L, D, H, 8, "cuda", dtype)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        k0 = (4 * torch.randn(L, S, T, D, generator=g, device="cuda")).to(dtype)
+        v0 = torch.randn(L, S, T, D, generator=g, device="cuda").to(dtype)
+        hidden = (0.5 * torch.randn(S, D, generator=g, device="cuda")).to(dtype)
+        pos, mask = pool_inputs(torch, S, T, "cuda")
+        if dtype == torch.bfloat16:
+            tiers = {"bf16": (params, False),
+                     "int8_fp8cache": (quantization.quantize_gpt_params(
+                         {"gpt": params}, bits=8)["gpt"], True)}
+        else:
+            tiers = {"fp32": (params, False)}
+        for tier, (tp, fp8) in tiers.items():
+            kc = k0.to(torch.float8_e4m3fn) if fp8 else k0
+            vc = v0.to(torch.float8_e4m3fn) if fp8 else v0
+            out, kr, vr = k4(tp, hidden, kc, vc, pos, mask, H)
+            ref, rk, rv = plain(tp, hidden, kc, vc, pos, mask, H)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            row_err = max((kr.float() - rk.float()).abs().max().item(),
+                          (vr.float() - rv.float()).abs().max().item())
+            row_scale = max(rk.float().abs().max().item(), rv.float().abs().max().item())
+            if dtype == torch.float32:
+                tol, row_tol = 1e-4 * max(1.0, scale), 1e-5 * max(1.0, row_scale)
+            else:   # one bf16 ulp of the largest value; rows within a step of the cache type
+                tol = scale * 2.0 ** -7
+                row_tol = row_scale * (2.0 ** -3 if fp8 else 2.0 ** -7)
+            masked_finite = bool(torch.isfinite(out[1].float()).all().item())
+            faults = {}
+            off = pos.clone()
+            off[0] -= 1
+            faults["row 0 position off by one"] = (tp, off, mask)
+            swapped = mask.clone()
+            swapped[[0, 2]] = mask[[2, 0]]
+            faults["masks of rows 0 and 2 swapped"] = (tp, pos, swapped)
+            if tier.startswith("int8"):
+                b = tp["blocks"]
+                faults["int8 scales dropped"] = ({**tp, "blocks": {**b, "attn": {
+                    **b["attn"], "qkv_w": {"q": b["attn"]["qkv_w"]["q"],
+                                           "s": torch.ones_like(b["attn"]["qkv_w"]["s"])}}}},
+                    pos, mask)
+            fault_err = {}
+            for name, (fp, fpos, fmask) in faults.items():
+                fref, _, _ = plain(fp, hidden, kc, vc, fpos, fmask, H)
+                fault_err[name] = (fref.float() - ref.float()).abs().max().item()
+                if fault_err[name] <= tol:
+                    raise SmokeFailure(f"K4 {tier} S={S}: a planted fault ({name}) moves the "
+                                       f"output by {fault_err[name]}, within tol {tol}")
+            args = [(tp, hidden, kc, vc, pos, mask, H)]
+            timing = {"ms": cuda_ms(k4, args, 10), "eager_ms": cuda_ms(k4, args, 10, graph=False),
+                      "plain_ms": cuda_ms(plain, args, 2, graph=False)}
+            cache5 = gpt2.KVCache(kc.view(L, S, T, H, 64).transpose(2, 3).contiguous(),
+                                  vc.view(L, S, T, H, 64).transpose(2, 3).contiguous())
+            size = gpt2.GPT2Size(L, D, H)
+            timing["decode_step_rows_ms"] = cuda_ms(
+                gpt2.decode_step_rows, [(tp, hidden[:, None], cache5, pos, mask, size)], 2,
+                graph=False)
+            del cache5
+            moved, flops, wbytes = pool_bytes_flops(tp, L, D, pos, mask, kc.element_size(),
+                                                    hidden.element_size())
+            # the bound takes the products at the peak of the TPU kernel's
+            # operand type; fp32 FMA time, what this kernel's CUDA-core
+            # products would need at best, is a design note beside it
+            bb = moved / HBM_BYTES_PER_S * 1e3
+            bo = flops / peak_flops(torch, dtype) * 1e3
+            timing.update(bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
+                          bytes_moved=moved, weight_bytes=wbytes, flops=flops,
+                          bytes_bound_ms=bb, ops_bound_ms=bo,
+                          fp32_fma_ms=flops / FP32_FLOPS * 1e3)
+            check(f"K4 pool_step {tier} S={S} T={T}", err, tol, row_err=row_err,
+                  row_tol=row_tol, masked_row_finite=masked_finite,
+                  layers_add=(ref.float() - hidden.float()).abs().max().item(),
+                  planted_fault_err=fault_err, **timing)
+            check(f"K4 new K/V rows {tier} S={S}", row_err, row_tol)
+            if not masked_finite:
+                raise SmokeFailure(f"K4 {tier} S={S}: the all-masked row is not finite")
+            if dtype == torch.bfloat16:
+                e = entries.setdefault(tier, {
+                    "name": f"fused_pool_step[{tier}]", "route": "cuda",
+                    "source": "indextts_tpu_torch/csrc/pool_trunk.cu",
+                    "replaces": "indextts_tpu/ops/pallas/pool_trunk.py:296",
+                    "max_abs_err": 0.0, "library_ms": None,
+                    "tolerance": "1 bf16 ulp of max|plain| per pool width"})
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+                if S == 8:
+                    e.update({k: timing[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                     "bound_by")})
+                    e["per"] = f"one pool step, 24x1280, {tier}, S=8, T={T}, positions [384, 767]"
+                else:
+                    e["s64"] = {k: timing[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "decode_step_rows_ms")}
+        del params, tiers, k0, v0, kc, vc
+        torch.cuda.empty_cache()
+    return [entries["bf16"], entries["int8_fp8cache"]]
 
 
 def kernel_checks_permute(torch, permute):
@@ -548,18 +728,11 @@ def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> Non
     import numpy as np
     from indextts_tpu_torch.config import Config
 
-    def to_numpy(tree):
-        if isinstance(tree, dict):
-            return {k: to_numpy(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_numpy(v) for v in tree]
-        return tree.float().cpu().numpy()
-
     base = dict(config=Config.from_dict(SMALL_MODEL),
                 model_dir=os.path.join(HERE, "checkpoints_test"), seed=0)
     fp32 = {"gpt": "fp32", "vocoder": "fp32"}
     master = engine_mod.IndexTTS(device="cpu", precision_config=fp32, **base)
-    trees = (to_numpy(master.gpt_params), to_numpy(master.bigvgan_params))
+    trees = (_to_numpy(master.gpt_params), _to_numpy(master.bigvgan_params))
     greedy = dict(do_sample=False, max_mel_tokens=24)
     cases = [("sampling decode", fp32, dict(greedy, num_beams=1)),
              ("default beam-3", fp32, greedy)]
@@ -580,6 +753,261 @@ def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> Non
         err = float(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
         check(f"main path small model, {name}, {device} kernels vs CPU plain", err, 4.0,
               samples=int(got.shape[0]), code_lens=dut.last_stats["code_lens"])
+
+
+POOL_TEXTS = ["你好，欢迎使用语音合成。", "今天天气很好。", "我们去散步吧。", "The sun rises.",
+              "A small dog barks.", "请再说一遍。", "Good morning to you.", "明天见。",
+              "It is raining.", "谢谢你的帮助。"]
+
+
+def pool_small_agreement(torch, engine_mod, pool_trunk, prompt: str) -> None:
+    """The continuous pool on a small fp32 model (head width 64): greedy, K4
+    each step (`fused_trunk=True`), 4-step ticks with staged refill, ten
+    requests through eight slots.  The card's codes must equal the CPU pool's
+    (K4's plain version) and each request's single-row decode on the CPU, and
+    the card's pool without K4 must give the same codes.  K4 launches once per
+    pool step."""
+    import numpy as np
+    from indextts_tpu_torch.config import Config
+
+    base = dict(config=Config.from_dict(SMALL_MODEL),
+                model_dir=os.path.join(HERE, "checkpoints_test"), seed=0,
+                precision_config={"gpt": "fp32", "vocoder": "fp32"})
+    ref = engine_mod.IndexTTS(device="cpu", **base)
+    dut = engine_mod.IndexTTS(device="cuda", **base)
+    dut.load_numpy_params(_to_numpy(ref.gpt_params), _to_numpy(ref.bigvgan_params))
+    ids = [np.asarray(ref.tokenizer.encode(t), np.int32) for t in POOL_TEXTS]
+    kw = dict(num_slots=8, steps_per_tick=4, max_text_width=32, max_new=24, do_sample=False)
+    codes = {}
+    for name, eng, fused in (("cpu", ref, True), ("cuda", dut, True), ("cuda unfused", dut, False)):
+        pool = eng.create_batcher(prompt, fused_trunk=fused, **kw)
+        pool_trunk.fused_pool_step.launches = 0
+        rids = [pool.submit(x) for x in ids]
+        res = pool.run()
+        codes[name] = [res[r].tolist() for r in rids]
+        if name == "cuda" and pool_trunk.fused_pool_step.launches != pool.step_count:
+            raise SmokeFailure(f"small pool: K4 launched {pool_trunk.fused_pool_step.launches} "
+                               f"times over {pool.step_count} steps")
+    cond = ref._conditioning(ref._prompt_mel(prompt))
+    single = []
+    for x in ids:
+        c, n, _ = ref._decode_bucket(cond, [x], None, dict(num_beams=1, do_sample=False,
+                                                           max_mel_tokens=24))
+        single.append(c[0, : int(n[0])].tolist())
+    lens = [len(c) for c in codes["cuda"]]
+    emit({"check": "pool small model: card K4 vs CPU pool vs single decode vs card unfused",
+          "requests": len(ids), "code_lens": lens,
+          "ok": codes["cuda"] == codes["cpu"] == single == codes["cuda unfused"]})
+    for name in ("cpu", "cuda unfused"):
+        if codes["cuda"] != codes[name]:
+            raise SmokeFailure(f"small pool: card codes {codes['cuda']} != {name} {codes[name]}")
+    if codes["cuda"] != single:
+        raise SmokeFailure(f"small pool: card codes {codes['cuda']} != single decode {single}")
+
+
+def pool_group_agreement(torch, engine_mod, pool_trunk, prompt: str, dp: int) -> None:
+    """`create_batcher(dp=N)`: a PoolGroup of N pools, one per card, on the
+    small fp32 model through K4 (8 slots each, 4-step ticks with staged
+    refill).  Thirty greedy requests must give the codes of one pool on
+    cuda:0, each pool's weights and state must sit on its own card, every
+    pool must take work, and K4 must launch once per step of each pool."""
+    import numpy as np
+    from indextts_tpu_torch.config import Config
+
+    eng = engine_mod.IndexTTS(config=Config.from_dict(SMALL_MODEL), device="cuda", seed=0,
+                              model_dir=os.path.join(HERE, "checkpoints_test"),
+                              precision_config={"gpt": "fp32", "vocoder": "fp32"})
+    ids = [np.asarray(eng.tokenizer.encode(t), np.int32) for t in POOL_TEXTS] * 3
+    kw = dict(fused_trunk=True, num_slots=8, steps_per_tick=4, max_text_width=32,
+              max_new=24, do_sample=False)
+    one = eng.create_batcher(prompt, **kw)
+    rids = [one.submit(x) for x in ids]
+    res = one.run()
+    want = [res[r].tolist() for r in rids]
+    group = eng.create_batcher(prompt, dp=dp, **kw)
+    pool_trunk.fused_pool_step.launches = 0
+    gids = [group.submit(x) for x in ids]
+    res = group.run()
+    got = [res[g].tolist() for g in gids]
+    launches = pool_trunk.fused_pool_step.launches
+    steps = [b.step_count for b in group.batchers]
+    placed = [(str(b.device), str(b.state.prev_tok.device),
+               str(b.params["gpt"]["blocks"]["attn"]["qkv_w"].device)) for b in group.batchers]
+    ok = (got == want and launches == sum(steps) and all(s > 0 for s in steps)
+          and placed == [(f"cuda:{i}",) * 3 for i in range(dp)])
+    emit({"check": f"pool group: create_batcher(dp={dp}) vs one pool, greedy codes",
+          "requests": len(ids), "pool_steps": steps, "K4_launches": launches,
+          "placement": placed, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"pool group dp={dp}: codes equal {got == want}, K4 {launches} "
+                           f"over steps {steps}, placement {placed}")
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.float().cpu().numpy()
+
+
+def _http(port: int, path: str, body: dict):
+    """POST a JSON body; returns (status, headers, bytes, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, dict(resp.getheaders()), data, time.perf_counter() - t0
+
+
+def profile_pool_steps(torch, pool, ids) -> None:
+    """Where a pool step's time goes: eight requests fill the 8-slot pool,
+    then two 16-step ticks run under torch.profiler.  Prints the wall time
+    per step, the device's busy time per step (the sum of CUDA kernel times),
+    and the ops that take the most host and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for x in ids:
+        pool.submit(x, max_new=120)
+    pool.step()                                   # admission and the first tick
+    torch.cuda.synchronize()
+    n0 = pool.step_count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pool.step()
+        pool.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = max(pool.step_count - n0, 1)
+    pool.run()
+    events = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    busy_us = sum(dev(e) for e in events)
+    top_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    top_dev = sorted(events, key=dev, reverse=True)[:8]
+    emit({"phase": "pool step profile (8 slots, K4, bf16, full width)", "steps": n,
+          "wall_ms_per_step": wall * 1e3 / n, "device_busy_ms_per_step": busy_us / 1e3 / n,
+          "device_busy_share": busy_us / 1e6 / wall if wall else None,
+          "top_host_ms_per_step": {e.key: e.self_cpu_time_total / 1e3 / n for e in top_host},
+          "top_device_ms_per_step": {e.key: dev(e) / 1e3 / n for e in top_dev}})
+
+
+def served(torch, engine_mod, httpd, kernels, prompt: str, tier: str):
+    """`serve()` at the full flagship width with the continuous pool through
+    K4 (`fused_trunk=True`, 8 slots): five concurrent /tts requests (distinct
+    texts and seeds, 160-200 codes each) and one /tts_stream.  Checks each
+    wav (RIFF, int16, 24 kHz), K4's launches against the pool's steps and K1's
+    against the vocoder calls, then drives a pool directly: a seeded sampled
+    request gives the same codes alone and among seven others; on the bf16
+    engine, two ticks of the full pool run under the profiler.  Returns K4's
+    launches on the served path."""
+    import threading
+
+    import numpy as np
+    from scipy.io import wavfile
+    import io
+
+    precision = {"gpt": "int8"} if tier == "int8_fp8cache" else None
+    eng = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
+                              device="cuda", seed=0, precision_config=precision)
+    vocodes = [0]
+    vocode = eng._vocode
+
+    def counted(*a):
+        vocodes[0] += 1
+        return vocode(*a)
+
+    eng._vocode = counted
+    srv = httpd.serve(None, os.path.join(HERE, "checkpoints_test"), host="127.0.0.1", port=0,
+                      engine_instance=eng, continuous=True,
+                      pool_kwargs={"fused_trunk": True, "num_slots": 8})
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    reqs = [("/tts", {"text": t, "audio_path": prompt, "seed": 100 + i, "max_mel_tokens": m})
+            for i, (t, m) in enumerate(zip(
+                [LONG, "你好，欢迎使用语音合成。今天天气很好。", POOL_TEXTS[3], POOL_TEXTS[6],
+                 "我们去散步吧。明天见。"], (200, 180, 160, 200, 170)))]
+    reqs.append(("/tts_stream", {"text": "谢谢你的帮助。请再说一遍。", "audio_path": prompt,
+                                 "seed": 7, "max_mel_tokens": 160}))
+    try:
+        srv.service.pool()       # build the pool before the clock starts
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        results = [None] * len(reqs)
+        t0 = time.perf_counter()
+
+        def call(i):
+            results[i] = _http(port, *reqs[i])
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        pool = srv.service._pool
+        launches = {n: k.launches for n, k in kernels.items()}
+        steps = pool.step_count
+    finally:
+        srv.shutdown()
+    audio_s = 0.0
+    per_request = []
+    for (path, body), res in zip(reqs, results):
+        if res is None or res[0] != 200:
+            raise SmokeFailure(f"served {tier}: {path} seed {body['seed']} answered "
+                               f"{None if res is None else (res[0], res[2][:200])}")
+        data = res[2]
+        if path == "/tts":
+            sr, samples = wavfile.read(io.BytesIO(data))
+        else:  # a stream of unknown length: header, then int16 PCM
+            sr, samples = 24000, np.frombuffer(data[44:], np.int16)
+        if data[:4] != b"RIFF" or sr != 24000 or samples.dtype != np.int16 \
+                or samples.shape[0] == 0 or samples.shape[0] % 1024:
+            raise SmokeFailure(f"served {tier}: {path} gave {data[:4]} sr {sr} "
+                               f"{samples.dtype} {samples.shape}")
+        audio_s += samples.shape[0] / 24000
+        per_request.append({"path": path, "seed": body["seed"], "s": res[3],
+                            "audio_s": samples.shape[0] / 24000})
+    codes = sum(int(r["audio_s"] * 24000) // 1024 for r in per_request)
+    emit({"phase": f"served {tier}, full width, 8-slot pool through K4", "requests": per_request,
+          "wall_s": wall, "pool_steps": steps, "pool_steps_per_s": steps / wall,
+          "codes_per_s": codes / wall, "audio_s_per_wall_s": audio_s / wall,
+          "vocoder_calls": vocodes[0], "launches": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if launches["K4"] != steps or steps == 0:
+        raise SmokeFailure(f"served {tier}: K4 launched {launches['K4']} times over {steps} "
+                           "pool steps")
+    if launches["K1"] != K1_PER_VOCODE * vocodes[0] or launches["K2"] or launches["K3"]:
+        raise SmokeFailure(f"served {tier}: launches {launches} for {vocodes[0]} vocoder calls")
+
+    # seeded determinism, driving a pool directly: codes, not wav bytes
+    pool = eng.create_batcher(fused_trunk=True, num_slots=8)
+    ids = [np.asarray(eng.tokenizer.encode(t), np.int32) for t in POOL_TEXTS]
+    samp = dict(temperature=0.8, top_k=30, top_p=0.8, repetition_penalty=10.0, do_sample=True)
+    rid = pool.submit(ids[0], max_new=120, sampling=samp, seed=77)
+    alone = pool.run()[rid]
+    rids = [pool.submit(x, max_new=120, sampling=samp, seed=500 + i)
+            for i, x in enumerate(ids[1:4])]
+    rid = pool.submit(ids[0], max_new=120, sampling=samp, seed=77)
+    rids += [pool.submit(x, max_new=120, sampling=samp, seed=600 + i)
+             for i, x in enumerate(ids[4:8])]
+    among = pool.run()[rid]
+    emit({"check": f"served {tier}: seeded request alone vs among seven others",
+          "code_len": len(alone), "ok": np.array_equal(alone, among)})
+    if len(alone) == 0 or not np.array_equal(alone, among):
+        raise SmokeFailure(f"seeded codes differ under traffic: {alone.tolist()} vs "
+                           f"{among.tolist()}")
+    if tier == "bf16":
+        profile_pool_steps(torch, pool, ids[:8])
+    del eng, pool
+    torch.cuda.empty_cache()
+    return launches["K4"]
 
 
 LONG = ("The quick brown fox jumps over the lazy dog while the morning sun rises slowly "
@@ -686,19 +1114,30 @@ def end_to_end(torch, engine_mod, kernels, prompt: str):
     return totals
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dp", type=int, default=0,
+                   help="run only the data-parallel pool check over this many cards")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if args.dp and torch.cuda.device_count() < args.dp:
+        print(f"chip_smoke: --dp {args.dp} needs {args.dp} cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.models import gpt2
     from indextts_tpu_torch.models import unified_voice as uv
     from indextts_tpu_torch.ops import filters, quantization
-    from indextts_tpu_torch.ops.cuda import _build, decode_layer, permute
+    from indextts_tpu_torch.ops.cuda import _build, decode_layer, permute, pool_trunk
     from indextts_tpu_torch.ops.cuda.anti_alias import fused_anti_alias_activation as k1
+    from indextts_tpu_torch.serve import httpd
 
     t_start = time.perf_counter()
     card = card_line()
@@ -711,18 +1150,28 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fp8_conversion_check(torch, _build)
-    entries = [kernel_checks_anti_alias(torch, filters, k1),
-               *kernel_checks_decode(torch, gpt2, decode_layer, quantization),
-               kernel_checks_permute(torch, permute)]
-
     out_dir = os.path.join(HERE, "_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
     prompt = os.path.join(out_dir, "prompt.wav")
     write_prompt(prompt)
+    if args.dp:
+        pool_group_agreement(torch, engine_mod, pool_trunk, prompt, args.dp)
+        emit({"phase": "done", "s": time.perf_counter() - t_start})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
+    fp8_conversion_check(torch, _build)
+    entries = [kernel_checks_anti_alias(torch, filters, k1),
+               *kernel_checks_decode(torch, gpt2, decode_layer, quantization),
+               kernel_checks_permute(torch, permute),
+               *kernel_checks_pool(torch, gpt2, pool_trunk, quantization)]
+
     small_agreement(torch, engine_mod, prompt)
+    pool_small_agreement(torch, engine_mod, pool_trunk, prompt)
     kernels = {"K1": k1, "K2": decode_layer.fused_decode_trunk_flat,
-               "K3": permute.permute_cache_rows}
+               "K3": permute.permute_cache_rows, "K4": pool_trunk.fused_pool_step}
     launches = end_to_end(torch, engine_mod, kernels, prompt)
     # the beam-reorder path: counts at 0 just before it, read just after
     tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
@@ -731,6 +1180,11 @@ def main() -> int:
         k.launches = 0
     launches["permute_cache_rows"] = beam_reorder_agreement(torch, uv, permute, tts, prompt)
     del tts
+    torch.cuda.empty_cache()
+    # the served path, once per K4 tier: counts at 0 just before the requests
+    for tier in ("bf16", "int8_fp8cache"):
+        launches[f"fused_pool_step[{tier}]"] = served(torch, engine_mod, httpd, kernels,
+                                                      prompt, tier)
     for e in entries:
         e["launches"] = launches[e["name"]]
         if e["launches"] == 0:

@@ -41,84 +41,20 @@
 // combines across chunks.  Launch overhead (6 L + 2 launches a step) is the
 // known gap to the bound.
 //
-// fp8 conversion: round to nearest even, as torch's float8_e4m3fn cast and
-// the JAX package's; a magnitude of 480 or more (and NaN) becomes NaN, no
-// saturation (CUDA's __NV_SATFINITE would clamp at 448).
+// The fp8 conversions and the attention block are shared with pool_trunk.cu
+// (trunk_common.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "trunk_common.cuh"
 
 namespace {
 
 constexpr int kGemvThreads = 256;
 constexpr int kGemvCols = 16;  // 8 lanes x 2 columns
 constexpr int kGemvRows = kGemvThreads / (kGemvCols / 2);  // 32 rows per pass
-constexpr int kHeadDim = 64;
-constexpr int kAttnChunk = 64;  // cache slots per attention block
-constexpr int kAttnWarps = 4;
-constexpr int kSlotsPerWarp = kAttnChunk / kAttnWarps;
-constexpr float kNegInf = -1e9f;
-
-enum Epilogue { kStore = 0, kStoreGelu = 1, kAddTo = 2 };
-enum WeightForm { kPlain = 0, kInt8 = 1, kInt4 = 2 };
-
-struct fp8_e4m3 {
-  uint8_t bits;
-};
-
-__device__ __forceinline__ float e4m3_to_f32(uint8_t v) {
-  const uint32_t sign = static_cast<uint32_t>(v & 0x80) << 24;
-  const uint32_t e = (v >> 3) & 0xF, m = v & 7;
-  if (e == 15 && m == 7) return __uint_as_float(sign | 0x7FC00000u);  // NaN
-  if (e == 0) {                                                       // subnormal
-    const float r = static_cast<float>(m) * 0.001953125f;             // m * 2^-9
-    return sign ? -r : r;
-  }
-  return __uint_as_float(sign | ((e + 120) << 23) | (m << 20));
-}
-
-__device__ __forceinline__ uint8_t f32_to_e4m3(float f) {
-  uint32_t bits = __float_as_uint(f);
-  const uint8_t sign = static_cast<uint8_t>((bits >> 24) & 0x80);
-  bits &= 0x7FFFFFFFu;
-  if (bits >= (1087u << 20)) return sign | 0x7F;  // |f| >= 480, inf or NaN: NaN
-  if (bits < (121u << 23)) {                      // below 2^-6: subnormal (or 0)
-    const uint32_t magic = 141u << 23;            // adding it rounds to even at 2^-9
-    const uint32_t r = __float_as_uint(__uint_as_float(bits) + __uint_as_float(magic));
-    return sign | static_cast<uint8_t>(r - magic);
-  }
-  const uint32_t mant_odd = (bits >> 20) & 1;
-  bits += (static_cast<uint32_t>(7 - 127) << 23) + 0x7FFFF + mant_odd;
-  return sign | static_cast<uint8_t>(bits >> 20);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ void store(fp8_e4m3* p, float v) { p->bits = f32_to_e4m3(v); }
-
-// v rounded to type T and back
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const fp8_e4m3* p) {
-  const uint16_t two = *reinterpret_cast<const uint16_t*>(p);
-  return make_float2(e4m3_to_f32(two & 0xFF), e4m3_to_f32(two >> 8));
-}
 
 // the two int8 values at p (p even-aligned)
 __device__ __forceinline__ char2 load_i8x2(const int8_t* p) {
@@ -132,12 +68,6 @@ __device__ __forceinline__ float nib_hi(signed char b) {
   return static_cast<float>(static_cast<int32_t>(static_cast<uint32_t>(b) << 24) >> 28);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // Sum over the block (blockDim.x == kGemvThreads); every thread gets it.
 __device__ float block_sum(float v, float* red) {
   v = warp_sum(v);
@@ -149,11 +79,6 @@ __device__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int w = 0; w < kGemvThreads / 32; ++w) s += red[w];
   return s;
-}
-
-__device__ __forceinline__ float gelu_new(float h) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * h * (1.f + tanhf(c * (h + 0.044715f * h * h * h)));
 }
 
 // out[n] (op) vin @ W[:, n] + bias[n] for this block's 16 columns, with vin
@@ -267,108 +192,16 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
 attn_partial_kernel(const float* __restrict__ qkv, const C* __restrict__ kc,
                     const C* __restrict__ vc, const int* __restrict__ mask, int pos, int D,
                     float scale, float* __restrict__ part) {
-  __shared__ float wm[kAttnWarps], ws[kAttnWarps], wacc[kAttnWarps][kHeadDim];
-  const int h = blockIdx.x, chunk = blockIdx.y, n_split = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = h * kHeadDim + 2 * lane;
-  const float q0 = qkv[col], q1 = qkv[col + 1];
-  const int base = chunk * kAttnChunk + warp * kSlotsPerWarp;
-
-  float sc[kSlotsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kSlotsPerWarp; ++i) {
-    const int t = base + i;
-    float d = 0.f;
-    if (t < pos) {
-      const float2 kv = load2(kc + (long long)t * D + col);
-      d = q0 * kv.x + q1 * kv.y;
-    } else if (t == pos) {
-      d = q0 * round_to<A>(qkv[D + col]) + q1 * round_to<A>(qkv[D + col + 1]);
-    }
-    sc[i] = d;
-  }
-  float m = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < kSlotsPerWarp; ++i) {
-    const int t = base + i;
-    sc[i] = warp_sum(sc[i]);
-    if (t <= pos) {
-      sc[i] = sc[i] * scale + (mask[t] != 0 ? 0.f : kNegInf);
-      m = fmaxf(m, sc[i]);
-    }
-  }
-  float s = 0.f, a0 = 0.f, a1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < kSlotsPerWarp; ++i) {
-    const int t = base + i;
-    if (t <= pos) {
-      const float p = expf(sc[i] - m);
-      const float2 vv = t < pos ? load2(vc + (long long)t * D + col)
-                                : make_float2(round_to<A>(qkv[2 * D + col]),
-                                              round_to<A>(qkv[2 * D + col + 1]));
-      s += p;
-      a0 = fmaf(p, vv.x, a0);
-      a1 = fmaf(p, vv.y, a1);
-    }
-  }
-  if (lane == 0) {
-    wm[warp] = m;
-    ws[warp] = s;
-  }
-  wacc[warp][2 * lane] = a0;
-  wacc[warp][2 * lane + 1] = a1;
-  __syncthreads();
-
-  if (threadIdx.x < kHeadDim) {
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kAttnWarps; ++w)
-      if (ws[w] > 0.f) M = fmaxf(M, wm[w]);
-    float S = 0.f, Acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kAttnWarps; ++w) {
-      if (ws[w] > 0.f) {
-        const float f = expf(wm[w] - M);
-        S = fmaf(ws[w], f, S);
-        Acc = fmaf(wacc[w][threadIdx.x], f, Acc);
-      }
-    }
-    float* out = part + ((long long)h * n_split + chunk) * (2 + kHeadDim);
-    if (threadIdx.x == 0) {
-      out[0] = M;
-      out[1] = S;
-    }
-    out[2 + threadIdx.x] = Acc;
-  }
+  const int h = blockIdx.x, chunk = blockIdx.y;
+  attn_partial_block<A, C>(qkv, qkv + D, qkv + 2 * D, kc, vc, mask, pos, D, scale, h, chunk,
+                           part + ((long long)h * gridDim.y + chunk) * (2 + kHeadDim));
 }
 
 // ctx[h * hd + d] = combined softmax-weighted sum over the chunks of head h.
 __global__ void attn_combine_kernel(const float* __restrict__ part, int n_split,
                                     float* __restrict__ ctx) {
   const int h = blockIdx.x, d = threadIdx.x;
-  const float* p = part + (long long)h * n_split * (2 + kHeadDim);
-  float M = -INFINITY;
-  for (int c = 0; c < n_split; ++c) M = fmaxf(M, p[c * (2 + kHeadDim)]);
-  float S = 0.f, Acc = 0.f;
-  for (int c = 0; c < n_split; ++c) {
-    const float* pc = p + c * (2 + kHeadDim);
-    const float f = expf(pc[0] - M);
-    S = fmaf(pc[1], f, S);
-    Acc = fmaf(pc[2 + d], f, Acc);
-  }
-  ctx[h * kHeadDim + d] = Acc / S;
-}
-
-template <typename T>
-__global__ void to_f32_kernel(const T* __restrict__ in, float* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = to_f32(in[i]);
-}
-
-template <typename T>
-__global__ void from_f32_kernel(const float* __restrict__ in, T* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) store(out + i, in[i]);
+  ctx[h * kHeadDim + d] = attn_combine(part + (long long)h * n_split * (2 + kHeadDim), n_split, d);
 }
 
 // One stacked matrix: its data, the fp32 scales of a quantized form, and

@@ -4,7 +4,10 @@ indextts_tpu/engine.py).
 Single-utterance synthesis, sentence by sentence (reference infer.py:
 779-917): prompt mel -> conditioning latents -> beam or sampling decode of
 mel codes -> long-silence compression -> teacher-forced latent re-forward ->
-BigVGAN with ECAPA speaker conditioning -> int16 PCM.  The GPT weights may
+BigVGAN with ECAPA speaker conditioning -> int16 PCM.  Pool serving
+(`create_batcher`, `pool_infer`, `pool_infer_stream`) decodes sentences of
+many requests in one continuous-batching pool (serve/scheduler.py), and an
+optional coordinator vocodes sentences that finish together as one batch.  The GPT weights may
 be quantized to int8 or int4 with an fp8 KV cache (precision keys as in the
 JAX engine).  Runs on `cuda` unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU it raises.
@@ -13,6 +16,7 @@ no GPU and no explicit CPU it raises.
 from __future__ import annotations
 
 import os
+import threading
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -27,6 +31,7 @@ from indextts_tpu_torch.models import unified_voice as uv
 from indextts_tpu_torch.ops import quantization
 from indextts_tpu_torch.ops.mel import MelSpectrogramFeatures
 from indextts_tpu_torch.ops.sampling import mix_seed
+from indextts_tpu_torch.serve.scheduler import ContinuousBatcher, PoolGroup
 from indextts_tpu_torch.utils import audio as audio_io
 from indextts_tpu_torch.utils.textnorm import TextNormalizer
 from indextts_tpu_torch.utils.tokenizer import TextTokenizer
@@ -77,6 +82,121 @@ def remove_long_silence(codes: np.ndarray, code_lens: np.ndarray,
     for i, c in enumerate(out_list):
         out[i, : len(c)] = c
     return out, new_lens
+
+
+class _VocodeJob:
+    """One codes-to-wav job waiting for the coordinator (a small future)."""
+
+    __slots__ = ("cond", "mel", "id_lists", "codes", "lens", "_done", "_wav", "_exc")
+
+    def __init__(self, cond, mel, id_lists, codes, lens):
+        self.cond = cond            # [1, 32, D] on the device (per request)
+        self.mel = mel              # [1, T_mel, n_mels] on the device
+        self.id_lists = id_lists
+        self.codes = codes          # [B_j, W] np
+        self.lens = lens            # [B_j] np
+        self._done = threading.Event()
+        self._wav: Optional[np.ndarray] = None
+        self._exc: Optional[BaseException] = None
+
+    @property
+    def rows(self) -> int:
+        return len(self.id_lists)
+
+    def key(self):
+        return (tuple(self.mel.shape), str(self.mel.dtype))
+
+    def fulfill(self, wav: np.ndarray) -> None:
+        self._wav = wav
+        self._done.set()
+
+    def fail(self, exc: BaseException) -> None:
+        self._exc = exc
+        self._done.set()
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        if not self._done.wait(timeout):
+            raise TimeoutError("vocode job timed out")
+        if self._exc is not None:
+            raise self._exc
+        return self._wav
+
+
+class _VocodeCoordinator:
+    """Batches the codes-to-wav tail across requests.  Under pool serving the
+    decode batches across requests, but each sentence's latent re-forward and
+    vocoder would run alone.  The coordinator queues finished sentences for
+    up to `max_wait_s` and runs jobs with the same prompt-mel shape as one
+    batched re-forward and vocoder call (the vocoder takes per-row speaker
+    mels).  Groups are padded to a power-of-two row count, as in the JAX
+    package.  Its group key is the JAX package's (the mel shape)."""
+
+    def __init__(self, eng: "IndexTTS", max_rows: int = 8, max_wait_s: float = 0.025):
+        self.eng = eng
+        self.max_rows = int(max_rows)
+        self.max_wait_s = float(max_wait_s)
+        self._q: List[_VocodeJob] = []
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="vocode-coordinator")
+        self._thread.start()
+
+    def submit(self, cond, mel, id_lists, codes, lens) -> _VocodeJob:
+        job = _VocodeJob(cond, mel, id_lists, codes, lens)
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("vocode coordinator is closed")
+            self._q.append(job)
+            self._cv.notify()
+        return job
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30)
+
+    def _pop_first(self) -> Optional[_VocodeJob]:
+        with self._cv:
+            while not self._q and not self._stop:
+                self._cv.wait()
+            return self._q.pop(0) if self._q else None  # None: stopped and drained
+
+    def _pop_compatible(self, key, max_rows: int, deadline: float) -> Optional[_VocodeJob]:
+        """The next queued job with the same mel shape that fits in
+        `max_rows`, waiting until `deadline` only while the queue is empty."""
+        with self._cv:
+            while True:
+                for i, j in enumerate(self._q):
+                    if j.key() == key and j.rows <= max_rows:
+                        return self._q.pop(i)
+                if self._q or self._stop:
+                    return None
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    return None
+                self._cv.wait(remaining)
+
+    def _worker(self) -> None:
+        while True:
+            job = self._pop_first()
+            if job is None:
+                return
+            group, rows = [job], job.rows
+            deadline = time.perf_counter() + self.max_wait_s
+            while rows < self.max_rows:
+                nxt = self._pop_compatible(job.key(), self.max_rows - rows, deadline)
+                if nxt is None:
+                    break
+                group.append(nxt)
+                rows += nxt.rows
+            try:
+                for j, w in zip(group, self.eng._codes_to_wav_group(group)):
+                    j.fulfill(w)
+            except BaseException as e:  # noqa: BLE001 — to every waiter
+                for j in group:
+                    j.fail(e)
 
 
 class IndexTTS:
@@ -168,6 +288,8 @@ class IndexTTS:
 
         self.cache_audio_prompt: Optional[str] = None
         self.cache_cond_mel: Optional[torch.Tensor] = None
+        self._prompt_cache_lock = threading.Lock()   # pool requests come from many threads
+        self._vocode_coord: Optional[_VocodeCoordinator] = None
         mel = self.cfg.dataset.mel
         self._mel_extractor = MelSpectrogramFeatures(
             sample_rate=mel.sample_rate, n_fft=mel.n_fft, hop_length=mel.hop_length,
@@ -200,17 +322,28 @@ class IndexTTS:
     # -- helpers ----------------------------------------------------------
 
     def _prompt_mel(self, audio_prompt: str) -> torch.Tensor:
-        if self.cache_cond_mel is None or self.cache_audio_prompt != audio_prompt:
-            wav = audio_io.load_prompt_audio(audio_prompt, self.cfg.dataset.sample_rate)
-            self.cache_cond_mel = self._mel_extractor(
-                torch.as_tensor(wav, device=self.device))
-            self.cache_audio_prompt = audio_prompt
-        return self.cache_cond_mel
+        with self._prompt_cache_lock:
+            if self.cache_cond_mel is None or self.cache_audio_prompt != audio_prompt:
+                wav = audio_io.load_prompt_audio(audio_prompt, self.cfg.dataset.sample_rate)
+                self.cache_cond_mel = self._mel_extractor(
+                    torch.as_tensor(wav, device=self.device))
+                self.cache_audio_prompt = audio_prompt
+            return self.cache_cond_mel
 
     def _conditioning(self, cond_mel: torch.Tensor) -> torch.Tensor:
         lengths = torch.full((cond_mel.shape[0],), cond_mel.shape[-1], device=self.device)
         return uv.get_conditioning(self.gpt_params, self.cfg.gpt,
                                    cond_mel.to(self.gpt_dtype), lengths)
+
+    def _mel_ref(self, cond_mel: Optional[torch.Tensor],
+                 speaker_id: Optional[str]) -> torch.Tensor:
+        """The vocoder's speaker mel [1, T_mel, n_mels] from the prompt's mel."""
+        if speaker_id is not None:
+            raise NotImplementedError("speaker_id needs checkpoint speaker data "
+                                      "(ROADMAP item A1b)")
+        if cond_mel is None:
+            raise ValueError("an audio prompt is required")
+        return cond_mel.transpose(1, 2)
 
     def _text_inputs(self, token_lists) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode text tokens and mask [B, width] on the device: start/stop
@@ -289,12 +422,117 @@ class IndexTTS:
             torch.tensor([code_len], device=dev))
         return lat[0]  # [width, D], valid prefix = code_len
 
+    def _latents_batch_dev(self, cond_latent, id_lists, codes: np.ndarray,
+                           lens: np.ndarray) -> torch.Tensor:
+        """Batched teacher-forced re-forward of B sentences -> [B, width, D]
+        on the device: text padded to 16, codes to 64, both capped by the
+        position tables."""
+        B = len(id_lists)
+        lens = np.minimum(lens, self.cfg.gpt.max_mel_tokens)
+        tlens = np.asarray([len(ids) for ids in id_lists], np.int64)
+        twidth = max(min(_round_up(int(tlens.max()), 16), self.cfg.gpt.max_text_tokens),
+                     int(tlens.max()))
+        width = max(min(_round_up(max(1, int(lens.max())), 64), self.cfg.gpt.max_mel_tokens),
+                    int(lens.max()))
+        text_p = np.zeros((B, twidth), np.int64)
+        codes_p = np.full((B, width), self.stop_mel_token, np.int64)
+        for i, ids in enumerate(id_lists):
+            text_p[i, : tlens[i]] = ids
+            codes_p[i, : int(lens[i])] = codes[i, : int(lens[i])]
+        if cond_latent.shape[0] == 1 and B > 1:
+            cond_latent = cond_latent.expand(B, -1, -1)
+        dev = self.device
+        return uv.latent_forward(
+            self.gpt_params_batched, self.cfg.gpt, cond_latent, torch.as_tensor(text_p, device=dev),
+            torch.as_tensor(tlens, device=dev), torch.as_tensor(codes_p, device=dev),
+            torch.as_tensor(lens.astype(np.int64), device=dev))
+
     def _vocode(self, latent: torch.Tensor, mel_ref: torch.Tensor) -> torch.Tensor:
         """BigVGAN then int16 PCM on the device: scale in fp32, clip, and
         truncate toward zero on the cast."""
         wav = bigvgan_model.forward(self.bigvgan_params, latent.to(self.vocoder_dtype),
                                     mel_ref.to(self.vocoder_dtype), self.cfg.bigvgan)
         return torch.clamp(32767.0 * wav.float(), -32767.0, 32767.0).to(torch.int16)
+
+    def _codes_to_wav(self, cond_latent, mel_ref, id_lists, codes: np.ndarray,
+                      lens: np.ndarray) -> np.ndarray:
+        """Codes -> waveform: silence compression, batched latent re-forward,
+        one vocoder call, each sentence trimmed, concatenated."""
+        codes, lens = remove_long_silence(codes, lens, stop_token=self.stop_mel_token)
+        latents = self._latents_batch_dev(cond_latent, id_lists, codes, lens)
+        wav = self._vocode(latents, mel_ref).cpu().numpy()
+        wavs = [wav[i, 0][: max(1, min(int(lens[i]), latents.shape[1]))
+                          * self.cfg.gpt.mel_length_compression]
+                for i in range(len(id_lists))]
+        return np.concatenate(wavs) if wavs else np.zeros(1, np.int16)
+
+    def enable_vocode_batching(self, max_rows: int = 8, max_wait_ms: float = 25.0) -> None:
+        """Start the vocode coordinator: the tails of `pool_infer` and
+        `pool_infer_stream` then batch across requests that finish together."""
+        if self._vocode_coord is None:
+            self._vocode_coord = _VocodeCoordinator(self, max_rows=max_rows,
+                                                    max_wait_s=max_wait_ms / 1e3)
+
+    def disable_vocode_batching(self) -> None:
+        coord, self._vocode_coord = self._vocode_coord, None
+        if coord is not None:
+            coord.close()
+
+    def _vocode_tail(self, cond_latent, mel_ref, id_lists, codes: np.ndarray,
+                     lens: np.ndarray) -> np.ndarray:
+        """The pool path's codes-to-wav: through the coordinator when it runs,
+        else the request's own tail."""
+        coord = self._vocode_coord
+        if coord is None:
+            return self._codes_to_wav(cond_latent, mel_ref, id_lists, codes, lens)
+        return coord.submit(cond_latent, mel_ref, id_lists, codes, lens).result()
+
+    def _codes_to_wav_group(self, group) -> List[np.ndarray]:
+        """The tail of a coordinator group: every job's rows in one latent
+        re-forward and one vocoder call with per-row conditioning, padded to
+        a power-of-two row count (pad rows repeat row 0 and are dropped).
+        Returns one concatenated wav per job."""
+        if len(group) == 1 and (group[0].rows & (group[0].rows - 1)) == 0:
+            j = group[0]
+            return [self._codes_to_wav(j.cond, j.mel, j.id_lists, j.codes, j.lens)]
+        id_lists = [ids for j in group for ids in j.id_lists]
+        rows = len(id_lists)
+        padded = 1
+        while padded < rows:
+            padded *= 2
+        width = max(1, max(int(j.codes.shape[1]) for j in group))
+        codes = np.full((padded, width), self.stop_mel_token, np.int64)
+        lens = np.ones((padded,), np.int64)
+        conds, mels = [], []
+        r = 0
+        for j in group:
+            codes[r: r + j.rows, : j.codes.shape[1]] = j.codes
+            lens[r: r + j.rows] = j.lens
+            conds.append(j.cond.expand(j.rows, -1, -1))
+            mels.append(j.mel.expand(j.rows, -1, -1))
+            r += j.rows
+        for p in range(rows, padded):  # pad rows: row 0's codes, length 1
+            codes[p, : group[0].codes.shape[1]] = group[0].codes[0]
+        if padded > rows:
+            conds.append(group[0].cond.expand(padded - rows, -1, -1))
+            mels.append(group[0].mel.expand(padded - rows, -1, -1))
+            id_lists = id_lists + [group[0].id_lists[0]] * (padded - rows)
+        codes, lens = remove_long_silence(codes, lens, stop_token=self.stop_mel_token)
+        latents = self._latents_batch_dev(torch.cat(conds), id_lists, codes, lens)
+        wav = self._vocode(latents, torch.cat(mels)).cpu().numpy()
+        row_wavs = [wav[i, 0][: max(1, min(int(lens[i]), latents.shape[1]))
+                              * self.cfg.gpt.mel_length_compression]
+                    for i in range(rows)]
+        out, r = [], 0
+        for j in group:
+            out.append(np.concatenate(row_wavs[r: r + j.rows]))
+            r += j.rows
+        return out
+
+    @staticmethod
+    def _sentence_seed(seed: Optional[int], si: int) -> Optional[int]:
+        """Sentence si's seed from a request seed (ops/sampling.mix_seed)."""
+        return None if seed is None else mix_seed(int(seed), si)
 
     # -- public API -------------------------------------------------------
 
@@ -373,3 +611,140 @@ class IndexTTS:
             print(f">> saved: {output_path}")
             return output_path
         return sampling_rate, wav.astype(np.int16)[None, :].T
+
+    def _pool_sentences(self, audio_prompt, text, speaker_id, max_text_tokens_per_sentence):
+        """Conditioning, vocoder mel and sentence token ids of a pool request."""
+        cond_mel = self._prompt_mel(audio_prompt) if audio_prompt else None
+        mel_ref = self._mel_ref(cond_mel, speaker_id)
+        sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
+                                                   max_text_tokens_per_sentence)
+        id_lists = [np.asarray(self.tokenizer.convert_tokens_to_ids(s), np.int32)
+                    for s in sentences]
+        return self._conditioning(cond_mel), mel_ref, id_lists
+
+    def _pool_submit(self, batcher, cond, id_lists, done_cb, seed, sampling,
+                     max_mel_tokens) -> List[int]:
+        """Submit a request's sentences; sentence si takes seed mix(seed, si)."""
+        return [batcher.submit(ids, done_cb=done_cb, cond=cond, max_new=max_mel_tokens,
+                               sampling=sampling, seed=self._sentence_seed(seed, si))
+                for si, ids in enumerate(id_lists)]
+
+    def pool_infer(self, batcher, audio_prompt: Optional[str], text: str,
+                   speaker_id: Optional[str] = None, max_text_tokens_per_sentence: int = 100,
+                   timeout: float = 600.0, seed: Optional[int] = None,
+                   sampling: Optional[Dict[str, Any]] = None,
+                   max_mel_tokens: Optional[int] = None) -> Tuple[int, np.ndarray]:
+        """Synthesis through a shared continuous-batching pool: the sentences
+        join the pool with this call's conditioning, `sampling` and `seed`
+        (with a fixed seed the output does not depend on other traffic), and
+        the finished codes run the latent and vocoder tail.  Thread-safe; the
+        pool must be driven elsewhere (a step() loop: serve/httpd.py
+        --continuous runs one).  Returns (sr, int16 wav)."""
+        cond, mel_ref, id_lists = self._pool_sentences(audio_prompt, text, speaker_id,
+                                                       max_text_tokens_per_sentence)
+        results: Dict[int, np.ndarray] = {}
+        done = threading.Event()
+
+        def cb(rid, codes):
+            results[rid] = codes
+            if len(results) == len(id_lists):
+                done.set()
+
+        rids = self._pool_submit(batcher, cond, id_lists, cb, seed, sampling, max_mel_tokens)
+        if not rids:
+            return self.cfg.dataset.sample_rate, np.zeros(1, np.int16)
+        if not done.wait(timeout):
+            for rid in rids:  # reclaim the stuck sentences' decode budget
+                batcher.cancel(rid)
+            raise TimeoutError(f"pool synthesis timed out after {timeout}s")
+        code_lists = [results[r] for r in rids]
+        width = max(1, max(len(c) for c in code_lists))
+        codes = np.full((len(code_lists), width), self.stop_mel_token, np.int64)
+        lens = np.asarray([len(c) for c in code_lists], np.int64)
+        for i, c in enumerate(code_lists):
+            codes[i, : len(c)] = c
+        wav = self._vocode_tail(cond, mel_ref, id_lists, codes, lens)
+        return self.cfg.dataset.sample_rate, wav
+
+    def pool_infer_stream(self, batcher, audio_prompt: Optional[str], text: str,
+                          speaker_id: Optional[str] = None,
+                          max_text_tokens_per_sentence: int = 100, timeout: float = 600.0,
+                          seed: Optional[int] = None,
+                          sampling: Optional[Dict[str, Any]] = None,
+                          max_mel_tokens: Optional[int] = None):
+        """Streaming synthesis through a shared pool: every sentence is
+        submitted at once (here, before the first chunk is pulled, so setup
+        errors raise here), and a generator yields (sr, int16 chunk) per
+        sentence in order as each one's codes finish.  Sentences still
+        decoding when the consumer stops (disconnect or timeout) are
+        cancelled."""
+        cond, mel_ref, id_lists = self._pool_sentences(audio_prompt, text, speaker_id,
+                                                       max_text_tokens_per_sentence)
+        sr = self.cfg.dataset.sample_rate
+        results: Dict[int, np.ndarray] = {}
+        arrived = threading.Condition()
+
+        def cb(rid, codes):
+            with arrived:
+                results[rid] = codes
+                arrived.notify_all()
+
+        rids = self._pool_submit(batcher, cond, id_lists, cb, seed, sampling, max_mel_tokens)
+        deadline = time.perf_counter() + timeout
+
+        def chunks():
+            emitted = 0
+            try:
+                for si, (rid, ids) in enumerate(zip(rids, id_lists)):
+                    with arrived:
+                        while rid not in results:
+                            remaining = deadline - time.perf_counter()
+                            if remaining <= 0 or not arrived.wait(remaining):
+                                raise TimeoutError(
+                                    f"pool stream timed out after {timeout}s "
+                                    f"(sentence {si + 1}/{len(rids)})")
+                        sent = results.pop(rid)
+                    n = len(sent)
+                    codes = np.full((1, max(1, n)), self.stop_mel_token, np.int64)
+                    codes[0, :n] = sent
+                    wav = self._vocode_tail(cond, mel_ref, [ids], codes,
+                                            np.asarray([n], np.int64))
+                    emitted = si + 1
+                    yield sr, wav.astype(np.int16)
+            finally:
+                with arrived:
+                    pending = [r for r in rids[emitted:] if r not in results]
+                for rid in pending:
+                    batcher.cancel(rid)
+
+        return chunks()
+
+    def create_batcher(self, audio_prompt: Optional[str] = None,
+                       speaker_id: Optional[str] = None, dp: int = 0, **kwargs):
+        """Continuous-batching decode pool (serve/scheduler.py) over this
+        engine's weights, on its device: submit tokenised sentences, drain
+        codes as they finish.  Its base conditioning is the prompt's (zeros
+        without one; each request may bring its own).  `dp` > 1 returns a
+        `PoolGroup`, one pool per card over cuda:0 .. cuda:dp-1."""
+        if speaker_id is not None:
+            raise NotImplementedError("speaker_id needs checkpoint speaker data "
+                                      "(ROADMAP item A1b)")
+        if audio_prompt is None:
+            cond = torch.zeros(1, self.cfg.gpt.condition_num_latent, self.cfg.gpt.model_dim,
+                               dtype=self.gpt_dtype, device=self.device)
+        else:
+            cond = self._conditioning(self._prompt_mel(audio_prompt))
+        kwargs.setdefault("cache_dtype", self.gpt_dtype)
+        kwargs.setdefault("kv_dtype", self.kv_cache_dtype)
+        kwargs.setdefault("max_new", min(600, self.cfg.gpt.max_mel_tokens))
+        # multi-step ticks (with staged refill) on the card; single steps on
+        # the CPU, where each step is slow anyway
+        kwargs.setdefault("steps_per_tick", 16 if self.device.type == "cuda" else 1)
+        if dp and dp > 1:
+            if self.device.type != "cuda" or dp > torch.cuda.device_count():
+                raise ValueError(f"dp={dp} needs {dp} CUDA devices; "
+                                 f"{torch.cuda.device_count()} available")
+            return PoolGroup.create(self.gpt_params_batched, self.cfg.gpt, cond,
+                                    [torch.device("cuda", i) for i in range(dp)], **kwargs)
+        return ContinuousBatcher(self.gpt_params_batched, self.cfg.gpt, cond,
+                                 device=self.device, **kwargs)

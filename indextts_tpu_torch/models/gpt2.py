@@ -197,6 +197,73 @@ def decode_step(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
     return out, cache
 
 
+def decode_step_rows(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
+                     positions: torch.Tensor, attention_mask: torch.Tensor,
+                     size: GPT2Size) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token forward with a cache position per row, the continuous
+    pool's step: every slot sits at its own offset.  hidden [B, 1, D];
+    positions [B] the write slots (row b's K/V is written at positions[b] in
+    place, in the cache's type); attention_mask [B, cache_len] including
+    `positions`.  Returns (ln_f output [B, 1, D], cache)."""
+    bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0, NEG_INF).float()
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    pos = positions.long()
+    for l in range(size.layers):
+        def attend(q, k, v, l=l):
+            cache.k[l][rows, :, pos] = k[:, :, 0].to(cache.k.dtype)
+            cache.v[l][rows, :, pos] = v[:, :, 0].to(cache.v.dtype)
+            return _attention(q, cache.k[l], cache.v[l], bias)
+
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return out, cache
+
+
+def decode_step_rows_flat(params: Dict[str, Any], hidden: torch.Tensor, k_all: torch.Tensor,
+                          v_all: torch.Tensor, positions: torch.Tensor,
+                          attention_mask: torch.Tensor, size: GPT2Size
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`decode_step_rows` over the flat pool cache [L, S, T, D] (D = H * hd,
+    head-major), the layout of the pool-step kernel (ops/cuda/pool_trunk.py).
+    Unlike the kernel and its plain version (`pool_step_plain`), the new rows
+    are written first and read back in the cache's type, as the reference's
+    XLA step does; the tests hold both against that step.  hidden [S, 1, D];
+    positions [S]; attention_mask
+    [S, T] including `positions`.  Returns (ln_f output, k_all, v_all), the
+    cache written in place."""
+    S = hidden.shape[0]
+    T = k_all.shape[2]
+    H, hd = size.heads, size.head_dim
+    rows = torch.arange(S, device=hidden.device)
+    pos = positions.long()
+    bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0, NEG_INF).float()
+    for l in range(size.layers):
+        blk = tree_index(params["blocks"], l)
+        x = layer_norm(hidden, blk["ln_1"]["scale"], blk["ln_1"]["bias"])
+        qkv = _mm(x, blk["attn"]["qkv_w"]) + blk["attn"]["qkv_b"].to(x.dtype)
+        q, k, v = qkv[:, 0].split(qkv.shape[-1] // 3, dim=-1)          # [S, D] each
+        k_all[l, rows, pos] = k.to(k_all.dtype)
+        v_all[l, rows, pos] = v.to(v_all.dtype)
+        kr = k_all[l].view(S, T, H, hd).transpose(1, 2)
+        vr = v_all[l].view(S, T, H, hd).transpose(1, 2)
+        ctx = _merge_heads(_attention(q.reshape(S, H, 1, hd), kr, vr, bias))
+        hidden = hidden + _mm(ctx.to(x.dtype), blk["attn"]["proj_w"]) \
+            + blk["attn"]["proj_b"].to(x.dtype)
+        x = layer_norm(hidden, blk["ln_2"]["scale"], blk["ln_2"]["bias"])
+        m = gelu_new(_mm(x, blk["mlp"]["fc_w"]) + blk["mlp"]["fc_b"].to(x.dtype))
+        hidden = hidden + _mm(m, blk["mlp"]["proj_w"]) + blk["mlp"]["proj_b"].to(x.dtype)
+    out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return out, k_all, v_all
+
+
+def flatten_rows_cache(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[L, B, H, T, hd] -> flat [L, B, T, H * hd] (head-major per position)."""
+    L, B, H, T, hd = cache.k.shape
+    k = cache.k.transpose(2, 3).reshape(L, B, T, H * hd)
+    v = cache.v.transpose(2, 3).reshape(L, B, T, H * hd)
+    return k, v
+
+
 def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KVCache,
                         prefix_bias: torch.Tensor, suffix: KVCache, suffix_bias: torch.Tensor,
                         step: int, size: GPT2Size, nb: int) -> Tuple[torch.Tensor, KVCache]:

@@ -20,7 +20,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = (_PKG / "csrc" / "anti_alias.cu", _PKG / "csrc" / "decode_layer.cu",
-           _PKG / "csrc" / "permute.cu")
+           _PKG / "csrc" / "permute.cu", _PKG / "csrc" / "pool_trunk.cu")
+HEADERS = (_PKG / "csrc" / "trunk_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,6 +38,12 @@ _SIGNATURES = {
                           + [_P, _P] + [_P, _P, _I, _P] * 2 + [_P, _P]
                           + [_P, _P, _I, _P] * 2 + [_P, _P]),
     "decode_trunk_scratch_floats": (ctypes.c_longlong, [_I, _I, _I]),
+    # forms, hidden, out, k, v, k_rows, v_rows, positions, mask, S, L, D, H, T;
+    # ln1; qkv (w, s, bias); proj; ln2; fc; mproj; scratch, stream
+    "pool_trunk_step": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                        + [_P, _P] + [_P, _P, _P] * 2 + [_P, _P] + [_P, _P, _P] * 2
+                        + [_P, _P]),
+    "pool_trunk_scratch_floats": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "fp8_e4m3_roundtrip": (_I, [_P, _P, _P, _I, _P]),
     "permute_cache_rows": (_I, [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
@@ -56,7 +63,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

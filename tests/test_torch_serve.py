@@ -1,0 +1,240 @@
+"""PyTorch port, pool serving: `pool_infer` against the JAX engine's on the
+same weights, the batched vocode tail against JAX's, `pool_infer_stream`,
+the stdlib HTTP server over a socket in continuous mode, and the routes not
+ported yet.  The tiny engine of tests/test_torch_engine.py, fp32."""
+
+import http.client
+import json
+import threading
+import time
+import warnings
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+import jax.numpy as jnp
+
+from indextts_tpu import engine as jax_engine
+from indextts_tpu_torch import engine as torch_engine
+from indextts_tpu_torch.serve import httpd
+from tests.test_torch_engine import build_engines, model  # noqa: F401  (fixture)
+
+TEXT = "今天天气很好。我们去散步吧。"
+POOL = dict(num_slots=2, max_text_width=32, max_new=12, do_sample=False,
+            repetition_penalty=1.0)
+
+
+@pytest.fixture(scope="module")
+def engines(model):  # noqa: F811
+    jeng, teng = build_engines(model, {"gpt": "fp32", "vocoder": "fp32"})
+    return jeng, teng, str(model[0] / "prompt.wav"), model[0]
+
+
+class _DriveLoop:
+    """A thread stepping a pool, as the server's drive loop does."""
+
+    def __init__(self, pool):
+        self.pool, self.stop = pool, threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self.stop.is_set():
+            if not self.pool.step():
+                time.sleep(0.002)
+
+    def __enter__(self):
+        self.thread.start()
+        return self.pool
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(30)
+
+
+def test_pool_infer_wav_matches_jax(engines):
+    """Greedy pool synthesis of two sentences: the port's wav equals the JAX
+    engine's within one int16 step (fp32; the cast truncates)."""
+    jeng, teng, prompt, _ = engines
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with _DriveLoop(jeng.create_batcher(**POOL)) as jb:
+            jsr, jwav = jeng.pool_infer(jb, prompt, TEXT, max_text_tokens_per_sentence=20)
+        with _DriveLoop(teng.create_batcher(**POOL)) as tb:
+            tsr, twav = teng.pool_infer(tb, prompt, TEXT, max_text_tokens_per_sentence=20)
+    assert tsr == jsr == 24000 and twav.dtype == np.int16
+    assert twav.shape == jwav.shape and twav.shape[0] % 1024 == 0 and twav.shape[0] > 1024
+    assert np.abs(twav.astype(np.int32) - np.asarray(jwav).astype(np.int32)).max() <= 1
+
+
+def _jobs(rng, stop, rows_per_job):
+    """(ids, codes, lens) of jobs with the given row counts: texts under 16
+    tokens and codes under 64, the tail's smallest buckets."""
+    jobs = []
+    for rows in rows_per_job:
+        ids = [rng.integers(2, 40, (int(rng.integers(3, 8)),)).astype(np.int32)
+               for _ in range(rows)]
+        lens = rng.integers(4, 12, (rows,)).astype(np.int64)
+        codes = np.full((rows, int(lens.max())), stop, np.int32)
+        for r in range(rows):
+            codes[r, : lens[r]] = rng.integers(0, 50, (lens[r],))
+        jobs.append((ids, codes, lens))
+    return jobs
+
+
+def test_codes_to_wav_group_matches_jax(engines):
+    """A coordinator group of two one-row jobs: the port's batched tail equals
+    JAX's.  A group of a one-row and a two-row job (three rows, padded to
+    four): each job's wav equals its own direct tail (the batch size changes
+    the vocoder's sums, so within one int16 step)."""
+    jeng, teng, prompt, _ = engines
+    mel = teng._prompt_mel(prompt)
+    cond_np = np.asarray(jeng._conditioning(jnp.asarray(mel.numpy()), None))
+    cond, mel_ref = torch.tensor(cond_np), teng._mel_ref(mel, None)
+    rng = np.random.default_rng(7)
+    jobs = _jobs(rng, teng.stop_mel_token, (1, 1))
+    mel_np = np.swapaxes(mel.numpy(), 1, 2)
+    jwavs = jeng._codes_to_wav_group([jax_engine._VocodeJob(
+        jnp.asarray(cond_np), jnp.asarray(mel_np), *j) for j in jobs])
+    twavs = teng._codes_to_wav_group([torch_engine._VocodeJob(cond, mel_ref, *j)
+                                      for j in jobs])
+    for t, j in zip(twavs, jwavs):
+        assert t.shape == np.asarray(j).shape and t.dtype == np.int16
+        assert np.abs(t.astype(np.int32) - np.asarray(j).astype(np.int32)).max() <= 1
+    jobs = _jobs(rng, teng.stop_mel_token, (1, 2))
+    twavs = teng._codes_to_wav_group([torch_engine._VocodeJob(cond, mel_ref, *j)
+                                      for j in jobs])
+    for t, job in zip(twavs, jobs):
+        direct = teng._codes_to_wav(cond, mel_ref, *job)
+        assert t.shape == direct.shape
+        assert np.abs(t.astype(np.int32) - direct.astype(np.int32)).max() <= 1
+
+
+def test_pool_infer_stream_yields_the_sentences_in_order(engines):
+    _, teng, prompt, _ = engines
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with _DriveLoop(teng.create_batcher(**POOL)) as b:
+            sr, wav = teng.pool_infer(b, prompt, TEXT, max_text_tokens_per_sentence=20)
+            chunks = list(teng.pool_infer_stream(b, prompt, TEXT,
+                                                 max_text_tokens_per_sentence=20))
+    assert len(chunks) == 2 and all(s == sr for s, _ in chunks)
+    streamed = np.concatenate([c for _, c in chunks])
+    # each chunk is vocoded alone, pool_infer's sentences together: the batch
+    # size changes the vocoder's sums, so within one int16 step
+    assert streamed.shape == wav.shape
+    assert np.abs(streamed.astype(np.int32) - wav.astype(np.int32)).max() <= 1
+
+
+def test_create_batcher_defaults(engines):
+    _, teng, prompt, _ = engines
+    b = teng.create_batcher()
+    assert b.steps_per_tick == 1 and b.K == 0 and not b.fused    # the CPU's defaults
+    assert b.cache_dtype == torch.float32 and b.kv_dtype is None
+    b = teng.create_batcher(prompt, num_slots=2, steps_per_tick=4, max_new=8)
+    assert b.S == 2 and b.K == 2 and b.max_new == 8
+    with pytest.raises(ValueError, match="dp=2"):
+        teng.create_batcher(dp=2)
+    with pytest.raises(NotImplementedError, match="A1b"):
+        teng.create_batcher(speaker_id="someone")
+
+
+def _server(engine, **kw):
+    server = httpd.serve("unused.yaml", "unused", host="127.0.0.1", port=0,
+                         engine_instance=engine, **kw)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def _post(server, path, body):
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, dict(resp.getheaders()), data
+
+
+def _wav(data):
+    assert data[:4] == b"RIFF" and data[8:12] == b"WAVE"
+    import io
+    sr, samples = wavfile.read(io.BytesIO(data))
+    return sr, samples
+
+
+def test_http_server_continuous_mode(engines, tmp_path):
+    _, teng, prompt, _ = engines
+    server = _server(teng, continuous=True,
+                     pool_kwargs=dict(num_slots=2, max_text_width=32, max_new=8))
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+        conn.request("GET", "/health")
+        resp = conn.getresponse()
+        assert resp.status == 200 and json.loads(resp.read())["status"] == "ok"
+        conn.close()
+        req = {"text": TEXT, "audio_path": prompt, "seed": 5, "max_mel_tokens": 8,
+               "max_text_tokens_per_sentence": 20}
+        status, headers, data = _post(server, "/tts", req)
+        assert status == 200 and headers["X-Seed"] == "5"
+        sr, samples = _wav(data)
+        assert sr == 24000 and samples.dtype == np.int16 and samples.shape[0] % 1024 == 0
+        again = _post(server, "/tts", req)
+        assert again[0] == 200 and again[2] == data          # same seed, same bytes
+        other = _post(server, "/tts", {**req, "seed": 6})
+        assert other[1]["X-Seed"] == "6"
+        status, headers, stream = _post(server, "/tts_stream", req)
+        assert status == 200 and headers["Transfer-Encoding"] == "chunked"
+        assert stream[:4] == b"RIFF" and len(stream) == 44 + samples.nbytes
+        # the same codes (same seed); each sentence vocoded alone, so within
+        # one int16 step of /tts's batched tail
+        streamed = np.frombuffer(stream[44:], np.int16).astype(np.int32)
+        assert np.abs(streamed - samples.astype(np.int32)).max() <= 1
+        status, _, body = _post(server, "/tts", {"text": TEXT})
+        assert status == 400 and b"audio_path" in body
+        status, _, body = _post(server, "/tts", {**req, "num_beams": 3})
+        assert status == 500 and b"A12b" in body
+    finally:
+        server.shutdown()
+
+
+def test_http_server_routes_not_ported_yet(engines):
+    """Non-continuous: mode="fast" and /tts_stream name ROADMAP item A11;
+    mode="normal" synthesizes through `infer`."""
+    _, teng, prompt, _ = engines
+    server = _server(teng)
+    try:
+        req = {"text": "你好。", "audio_path": prompt, "max_mel_tokens": 4, "seed": 1}
+        for path, body in (("/tts", req), ("/tts_stream", req)):
+            status, _, data = _post(server, path, body)
+            assert status == 500 and b"A11" in data, data
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            status, headers, data = _post(server, "/tts", {**req, "mode": "normal",
+                                                           "num_beams": 1})
+        assert status == 200 and _wav(data)[0] == 24000
+        status, _, data = _post(server, "/model/reload", {"gpt_path": "gpt.pth"})
+        assert status == 500 and b"A1b" in data
+    finally:
+        server.shutdown()
+
+
+def test_beam_pool_option_names_its_roadmap_item(engines):
+    """--pool-beam-groups sizes the continuous beam pool, which is not
+    ported: the command line and the service refuse it."""
+    _, _, _, d = engines
+    with pytest.raises(NotImplementedError, match="A12b"):
+        httpd.main(["--continuous", "--pool-beam-groups", "2", "--host", "127.0.0.1",
+                    "--port", "0", "--model_dir", str(d)], device="cpu")
+    with pytest.raises(NotImplementedError, match="A12b"):
+        httpd.TTSService(str(d / "config.yaml"), str(d), continuous=True,
+                         beam_pool_kwargs={"num_groups": 2}, device="cpu")
+
+
+def test_service_defaults_to_cuda(engines):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    _, _, _, d = engines
+    service = httpd.TTSService(str(d / "config.yaml"), str(d))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        service.engine()
