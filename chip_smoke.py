@@ -16,14 +16,19 @@
      bf16 weights over an fp8 cache, with planted faults the tolerance must
      see (mask faults; int4 nibbles swapped; int4 MLP group scales on the
      wrong chunk; int8 scales dropped), and the kernel's fp8 conversion
-     against torch's cast, bit for bit.
+     against torch's cast, bit for bit, with the attention path's 16-byte
+     fp8 decoding on all 256 codes.  Each timed tier also prints its
+     per-kernel device breakdown (torch.profiler) and launches per call.
    - K3, the beam-cache row permute, bit-exact against index_select (also
      timed: `library_ms`) at the flagship beam-3 suffix in bf16 and fp8.
    - K4, the continuous pool's step, at S = 64 and S = 8 pool rows (T = 768)
      on bf16 weights over a bf16 cache and int8 weights over an e4m3 cache,
      and fp32 at width 128, with planted faults (a position off by one, two
      masks swapped, int8 scales dropped) and a masked row that must stay
-     finite; timed beside the plain torch `decode_step_rows`.
+     finite; timed beside the plain torch `decode_step_rows`, with the
+     per-kernel breakdown of one step; and the determinism check: one row's
+     output and new K/V rows bit-equal alone (S = 1), among 7 others (S = 8)
+     and among 63 others (S = 64), in other slots, on both tiers.
 3. Greedy beam-3 decode at full width under reorder="pallas" (K3) and
    reorder="full" (index_select): the codes must be equal, and K3 must
    launch once per step.
@@ -45,8 +50,11 @@
    step, K1 109 times per vocoder call, and a seeded request's codes the same
    alone and among seven others; a profile of two 16-step ticks of the full
    pool.
-7. Prints a `{"kernels": [...]}` line (K2 and K4 one entry per tier), the card
-   line, and as the last line `{"ok": true, "device": {...}}`.  Any failed
+7. Prints a `{"kernels": [...]}` line (K2 and K4 one entry per tier, with
+   `launches_per_call` and `gbytes_per_s`); before it, on a line of its
+   own, the previous design's K2 and K4 times as PERF.md records them
+   (quoted, not measured in the run); the card line, and as the last line
+   `{"ok": true, "device": {...}}`.  Any failed
    check exits non-zero before that line.  Without CUDA it exits non-zero
    at once.
 
@@ -73,6 +81,13 @@ BF16_FLOPS = 989e12         # H100 SXM bf16 on the tensor cores, dense
 N_CODES = 256               # a 200-code sentence, bucketed to 64 codes
 K1_PER_VOCODE = 109         # anti-aliased activations in one flagship vocode
 K1_FLOPS_PER_ELEM = 56      # 24 FMAs (up) + 24 (down) as flops, 8 for the two snakes
+# the previous design's graph-replay times, quoted from PERF.md on a line of
+# their own: no run of this script measures them
+EARLIER_MS = {"fused_decode_trunk_flat[bf16]": 1.48, "fused_decode_trunk_flat[int8]": 1.44,
+              "fused_decode_trunk_flat[int4]": 2.09, "fused_decode_trunk_flat[fp8_cache]": 1.56,
+              "fused_pool_step[bf16] S=8": 4.28, "fused_pool_step[bf16] S=64": 11.38,
+              "fused_pool_step[int8_fp8cache] S=8": 4.38,
+              "fused_pool_step[int8_fp8cache] S=64": 11.67}
 SMALL_MODEL = {             # 2 layers, width 128, head width 64; BigVGAN at 64 channels
     "gpt": {"model_dim": 128, "layers": 2, "heads": 2, "max_mel_tokens": 64,
             "max_text_tokens": 120,
@@ -128,6 +143,32 @@ def cuda_ms(fn, arg_sets, iters: int, graph: bool = True) -> float:
         end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_breakdown(torch, label: str, fn, args) -> int:
+    """Device time per kernel name over one call of `fn(*args)` under
+    torch.profiler, printed on one line with the launches per call.
+    Returns the launches per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):   # a trace that came back without device events is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if dev(e) > 0]
+        if kernels:
+            break
+    else:
+        raise SmokeFailure(f"{label}: three profiles with no device time")
+    launches = sum(e.count for e in kernels)
+    emit({"phase": f"{label} device breakdown", "launches_per_call": launches,
+          "device_ms": sum(dev(e) for e in kernels) / 1e3,
+          "per_kernel": {e.key[:90]: {"ms": dev(e) / 1e3, "launches": e.count}
+                         for e in sorted(kernels, key=dev, reverse=True)}})
+    return launches
 
 
 def peak_flops(torch, dtype) -> float:
@@ -295,6 +336,22 @@ def fp8_conversion_check(torch, _build):
     if mismatched or back_err:
         raise SmokeFailure(f"fp8 conversion: {mismatched} bytes differ from torch's cast, "
                            f"upcast error {back_err}")
+    # the attention path decodes 16 codes a 16-byte word: all 256 codes,
+    # against torch's upcast value for value (NaN where torch gives NaN)
+    codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
+    got = torch.empty(256, dtype=torch.float32, device="cuda")
+    rc = lib.fp8_e4m3_unpack16(codes.data_ptr(), got.data_ptr(), 16,
+                               torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "fp8_e4m3_unpack16")
+    want = codes.view(torch.float8_e4m3fn).float()
+    torch.cuda.synchronize()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    differ = int((~same).sum().item())
+    emit({"check": "K2/K4 attention fp8 e4m3 decode vs torch cast, all 256 codes",
+          "codes": 256, "nan_codes": int(torch.isnan(want).sum().item()),
+          "codes_differing": differ, "ok": differ == 0})
+    if differ:
+        raise SmokeFailure(f"fp8 decode of the attention path: {differ} of 256 codes differ")
 
 
 def kernel_checks_decode(torch, gpt2, decode_layer, quantization):
@@ -397,7 +454,10 @@ def decode_tier_checks(torch, k2, plain, quantization, tiers, hidden, k0, v0):
                 bb = moved / HBM_BYTES_PER_S * 1e3
                 bo = flops / peak_flops(torch, hidden.dtype) * 1e3
                 timing.update(bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else
-                              "operations", weight_bytes=wbytes, bytes_moved=moved)
+                              "operations", weight_bytes=wbytes, bytes_moved=moved,
+                              gbytes_per_s=moved / timing["ms"] / 1e6,
+                              launches_per_call=kernel_breakdown(
+                                  torch, f"K2 {tier} one step, position {pos}", k2, args[0]))
             max_err = max(max_err, err)
             check(f"K2 decode_trunk {tier} {label} pos={pos}", err, tol,
                   layers_add=(ref.float() - hidden.float()).abs().max().item(),
@@ -414,7 +474,7 @@ def decode_tier_checks(torch, k2, plain, quantization, tiers, hidden, k0, v0):
                     "source": "indextts_tpu_torch/csrc/decode_layer.cu",
                     "replaces": "indextts_tpu/ops/pallas/decode_layer.py:272",
                     **{k: timing[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                              "bound_by")},
+                                              "bound_by", "gbytes_per_s", "launches_per_call")},
                     "library_ms": None,
                     "per": f"one decode step, 24x1280, {tier}, T={T}, position {pos}"}
         if not fp32:
@@ -548,7 +608,14 @@ def kernel_checks_pool(torch, gpt2, pool_trunk, quantization):
             timing.update(bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
                           bytes_moved=moved, weight_bytes=wbytes, flops=flops,
                           bytes_bound_ms=bb, ops_bound_ms=bo,
-                          fp32_fma_ms=flops / FP32_FLOPS * 1e3)
+                          gbytes_per_s=moved / timing["ms"] / 1e6)
+            if dtype == torch.float32:
+                timing["fp32_fma_ms"] = flops / FP32_FLOPS * 1e3
+            else:
+                timing["launches_per_call"] = kernel_breakdown(
+                    torch, f"K4 {tier} one pool step S={S}", k4, args[0])
+            if S == 64:
+                determinism_across_traffic(torch, k4, tier, tp, hidden, kc, vc, pos, mask, H)
             check(f"K4 pool_step {tier} S={S} T={T}", err, tol, row_err=row_err,
                   row_tol=row_tol, masked_row_finite=masked_finite,
                   layers_add=(ref.float() - hidden.float()).abs().max().item(),
@@ -566,14 +633,42 @@ def kernel_checks_pool(torch, gpt2, pool_trunk, quantization):
                 e["max_abs_err"] = max(e["max_abs_err"], err)
                 if S == 8:
                     e.update({k: timing[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                                     "bound_by")})
+                                                     "bound_by", "gbytes_per_s",
+                                                     "launches_per_call")})
                     e["per"] = f"one pool step, 24x1280, {tier}, S=8, T={T}, positions [384, 767]"
                 else:
                     e["s64"] = {k: timing[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                                       "bound_by", "decode_step_rows_ms")}
+                                                       "bound_by", "decode_step_rows_ms",
+                                                       "gbytes_per_s", "launches_per_call")}
         del params, tiers, k0, v0, kc, vc
         torch.cuda.empty_cache()
     return [entries["bf16"], entries["int8_fp8cache"]]
+
+
+def determinism_across_traffic(torch, k4, tier, params, hidden, kc, vc, pos, mask, H) -> None:
+    """One row's K4 step must be bit-equal run alone (S = 1), among 7 other
+    rows (S = 8, in slot 3) and among 63 others (S = 64, in slot 41): its
+    hidden output and its new K/V rows.  The row is row 5 of the 64-row
+    inputs; the other rows are drawn from the rest."""
+    src = 5
+    got = {}
+    for S, slot in ((1, 0), (8, 3), (64, 41)):
+        others = [r for r in range(64) if r != src]
+        rows = (others[:slot] + [src] + others[slot: S - 1]) if S < 64 else \
+            others[:slot] + [src] + others[slot:]
+        idx = torch.tensor(rows, device="cuda")
+        out, kr, vr = k4(params, hidden[idx].contiguous(), kc[:, idx].contiguous(),
+                         vc[:, idx].contiguous(), pos[idx].contiguous(),
+                         mask[idx].contiguous(), H)
+        got[S] = [t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+                  for t in (out[slot], kr[:, slot], vr[:, slot])]
+    torch.cuda.synchronize()
+    equal = {S: all(torch.equal(a, b) for a, b in zip(got[1], got[S])) for S in (8, 64)}
+    emit({"check": f"K4 {tier}: one row bit-equal alone, among 7 and among 63 others",
+          "row_slots": {"1": 0, "8": 3, "64": 41}, "equal": {str(k): v for k, v in equal.items()},
+          "ok": all(equal.values())})
+    if not all(equal.values()):
+        raise SmokeFailure(f"K4 {tier}: a row's output depends on its traffic: {equal}")
 
 
 def kernel_checks_permute(torch, permute):
@@ -1190,6 +1285,8 @@ def main(argv=None) -> int:
         if e["launches"] == 0:
             raise SmokeFailure(f"{e['name']} was not launched on its path")
     emit({"phase": "done", "s": time.perf_counter() - t_start})
+    emit({"earlier_design_ms": EARLIER_MS,
+          "note": "the previous design's graph-replay times, quoted from PERF.md; not measured in this run"})
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

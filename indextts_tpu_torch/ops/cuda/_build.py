@@ -4,7 +4,9 @@ Each source under `indextts_tpu_torch/csrc/` has a plain C interface (no
 PyTorch headers), so `nvcc` takes seconds.  The sources compile in parallel,
 one `nvcc` each, into `indextts_tpu_torch/_build/libkernels.so` (listed in
 .gitignore).  The build is keyed on a hash of the sources and flags: a
-library whose stamp matches is loaded as it is.
+library whose stamp matches is loaded as it is.  The key covers every
+`csrc/*.cu` and `csrc/*.cuh` found on disk, so no header can be left out of
+it.
 """
 
 from __future__ import annotations
@@ -19,9 +21,7 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG / "csrc" / "anti_alias.cu", _PKG / "csrc" / "decode_layer.cu",
-           _PKG / "csrc" / "permute.cu", _PKG / "csrc" / "pool_trunk.cu")
-HEADERS = (_PKG / "csrc" / "trunk_common.cuh",)
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +45,7 @@ _SIGNATURES = {
                         + [_P, _P]),
     "pool_trunk_scratch_floats": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "fp8_e4m3_roundtrip": (_I, [_P, _P, _P, _I, _P]),
+    "fp8_e4m3_unpack16": (_I, [_P, _P, _I, _P]),
     "permute_cache_rows": (_I, [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -61,50 +62,63 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def sources(csrc: Path = CSRC) -> list:
+    """The translation units in `csrc`: every `.cu` file, one `nvcc` each."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def digest(csrc: Path = CSRC) -> str:
+    """The build key: the flags and every `.cu` and `.cuh` file in `csrc`,
+    names and bytes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
+    for src in sources(csrc) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
 
 
-def build() -> Path:
-    """Compile the sources (in parallel) and link libkernels.so, unless the
-    library on disk was built from the same sources and flags."""
-    digest = _digest()
-    stamp = BUILD_DIR / "libkernels.sha256"
-    if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
-        return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources in `csrc` (in parallel) and link libkernels.so in
+    `out_dir`, unless the library there was built from the same sources and
+    flags."""
+    key = digest(csrc)
+    lib_path = out_dir / LIB_PATH.name
+    stamp = out_dir / "libkernels.sha256"
+    if lib_path.exists() and stamp.exists() and stamp.read_text() == key:
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    units = sources(csrc)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in units]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-                 for src, obj in zip(SOURCES, objs)]
+                 for src, obj in zip(units, objs)]
         logs = [p.communicate()[0].decode(errors="replace") for p in procs]
-        for src, p, log in zip(SOURCES, procs, logs):
+        for src, p, log in zip(units, procs, logs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
-        lib_tmp = os.path.join(tmp, LIB_PATH.name)
+        lib_tmp = os.path.join(tmp, lib_path.name)
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", lib_tmp],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        os.replace(lib_tmp, LIB_PATH)
-    stamp.write_text(digest)
-    return LIB_PATH
+        os.replace(lib_tmp, lib_path)
+    stamp.write_text(key)
+    return lib_path
 
 
-@functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with every argtype set."""
-    lib = ctypes.CDLL(str(build()))
+@functools.lru_cache(maxsize=None)
+def load(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """The kernel library built from `csrc` into `out_dir` if needed, with
+    the argtypes of every entry point it exports set (an older source tree
+    may lack the newest ones)."""
+    lib = ctypes.CDLL(str(build(csrc, out_dir)))
     for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.restype = restype
+            fn.argtypes = argtypes
     return lib
 
 

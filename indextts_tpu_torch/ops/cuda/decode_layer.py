@@ -7,10 +7,14 @@ It serves every tier of the TPU kernel: weights in the activation type
 (ops/quantization.py), and a cache in the activation type or fp8 e4m3.
 Device memory bandwidth bounds the step: it reads every trunk weight once
 (943.7 MB in bf16 at the flagship width, about half in int8, a quarter in
-int4) plus the live cache (design notes in the source).  The plain version,
-`decode_trunk_plain`, is a per-layer torch loop with the same arithmetic;
-the wrapper takes it only for tensors on the CPU.  For CUDA tensors it
-launches the kernels or raises.
+int4) plus the live cache.  The kernels are the S = 1 case of the product
+core K2 shares with K4 (`csrc/trunk_products.cuh`: tensor-core products at
+fp32 accuracy over streamed weights, 5 L + 2 chained launches a step;
+design notes in the sources).  The plain version, `decode_trunk_plain`, is
+a per-layer torch loop with the same arithmetic; the wrapper takes it only
+for tensors on the CPU.  For CUDA tensors it launches the kernels or raises.
+`fused_decode_trunk` is the head-split wrapper: [L, 1, H, T, hd] cache in,
+the same cache layout out.
 """
 
 from __future__ import annotations
@@ -39,6 +43,16 @@ def flatten_cache(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
     k = cache.k[:, 0].transpose(1, 2).reshape(L, T, H * hd).contiguous()
     v = cache.v[:, 0].transpose(1, 2).reshape(L, T, H * hd).contiguous()
     return k, v
+
+
+def unflatten_cache(k_flat: torch.Tensor, v_flat: torch.Tensor, heads: int) -> KVCache:
+    """Flat [L, T, H*hd] (head-major) -> [L, 1, H, T, hd], the inverse of
+    flatten_cache."""
+    L, T, D = k_flat.shape
+    hd = D // heads
+    k = k_flat.reshape(L, T, heads, hd).transpose(1, 2)[:, None]
+    v = v_flat.reshape(L, T, heads, hd).transpose(1, 2)[:, None]
+    return KVCache(k, v)
 
 
 def decode_trunk_plain(params: Dict[str, Any], hidden: torch.Tensor, k_flat: torch.Tensor,
@@ -103,6 +117,9 @@ def _weight_form(w, dtype: torch.dtype, K: int, N: int, L: int):
                 or K % (2 * G)):
             raise ValueError(f"int4 weight {tuple(q.shape)}/{tuple(s.shape)}: expected "
                              f"int8 {(L, K // 2, N)} with fp32 scales [L, 2G, N], 2G | K")
+        if (K // (2 * G)) % 64:
+            raise ValueError(f"int4 weight with {G} groups over K={K}: the kernel takes "
+                             "halves of a multiple of 64 rows")
         return _INT4, q, s, G
     raise ValueError(f"weight form {sorted(w)} is not served by the kernel "
                      "(the shared int4 layout is for batched decode)")
@@ -121,7 +138,8 @@ def fused_decode_trunk_flat(params: Dict[str, Any], hidden: torch.Tensor,
     given cache tensors IN PLACE.  On CUDA: hidden, LayerNorm parameters and
     biases in one type (bf16 or fp32); the four matrices all plain in that
     type, all int8 or all fused int4; the cache in hidden's type or
-    float8_e4m3fn; head_dim 64; D a multiple of 16."""
+    float8_e4m3fn; head_dim 64; D a multiple of 128; int4 halves
+    (K / 2G rows) a multiple of 64."""
     if hidden.device.type == "cpu":
         return decode_trunk_plain(params, hidden, k_flat, v_flat, position,
                                   attention_mask, heads)
@@ -149,7 +167,7 @@ def fused_decode_trunk_flat(params: Dict[str, Any], hidden: torch.Tensor,
     tensors += [t for m in mats for t in m[1:3] if t is not None]
     if any(t.device != hidden.device or not t.is_contiguous() for t in tensors):
         raise ValueError("every tensor must be contiguous and on hidden's device")
-    if D // heads != 64 or D % 16 or hidden.numel() != D or not 0 <= int(position) < T:
+    if D // heads != 64 or D % 128 or hidden.numel() != D or not 0 <= int(position) < T:
         raise ValueError(f"unsupported shape: D={D} heads={heads} T={T} "
                          f"position={int(position)}")
     lib = _build.load()
@@ -175,3 +193,17 @@ def fused_decode_trunk_flat(params: Dict[str, Any], hidden: torch.Tensor,
 
 
 fused_decode_trunk_flat.launches = 0
+
+
+def fused_decode_trunk(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
+                       position: int, attention_mask: torch.Tensor, heads: int
+                       ) -> Tuple[torch.Tensor, KVCache]:
+    """The head-split wrapper (counterpart of the TPU package's
+    fused_decode_trunk): the cache [L, 1, H, T, hd] is flattened, stepped by
+    fused_decode_trunk_flat and returned in its own layout.  A loop that keeps
+    the flat layout should call fused_decode_trunk_flat: the transposes here
+    cost a pass over the cache each step."""
+    k_flat, v_flat = flatten_cache(cache)
+    x, k_flat, v_flat = fused_decode_trunk_flat(params, hidden, k_flat, v_flat, position,
+                                                attention_mask, heads)
+    return x, unflatten_cache(k_flat, v_flat, heads)

@@ -8,11 +8,12 @@ Each row sits at its own cache position over the flat pool cache
 "s"}` weights, and a cache in the activation type or fp8 e4m3, as the TPU
 kernel does (`supported`).  It returns the trunk hidden before ln_f and the
 new K/V rows; the caller scatters the rows into the cache.  At S <= 64 it
-reads every weight once a step; at 64 rows the products on CUDA cores weigh
-about as much as the bytes (design notes in the source).  The plain version,
-`pool_step_plain`, repeats the kernel's arithmetic in torch; the wrapper takes
-it only for tensors on the CPU.  For CUDA tensors it launches the kernels or
-raises.
+reads every weight once a step, on the product core it shares with K2
+(`csrc/trunk_products.cuh`: tensor-core products at fp32 accuracy over
+streamed weights, 5 L + 2 chained launches; design notes in the sources).
+The plain version, `pool_step_plain`, repeats the kernel's arithmetic in
+torch; the wrapper takes it only for tensors on the CPU.  For CUDA tensors
+it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -149,8 +150,9 @@ def fused_pool_step(params: Dict[str, Any], hidden: torch.Tensor, k_all: torch.T
         raise ValueError(f"shapes: hidden {tuple(hidden.shape)}, cache {tuple(k_all.shape)}, "
                          f"positions {tuple(positions.shape)}, mask "
                          f"{tuple(attention_mask.shape)}")
-    if D % heads or D // heads != 64:
-        raise ValueError(f"unsupported head width: D={D} heads={heads} (64 only)")
+    if D % heads or D // heads != 64 or D % 128:
+        raise ValueError(f"unsupported width: D={D} heads={heads} (head width 64, D a "
+                         "multiple of 128)")
     vectors = [blocks[a][b] for a, b in _NORMS + _BIASES]
     if any(t.dtype != dtype for t in vectors):
         raise ValueError("LayerNorm parameters and biases must be in hidden's type")

@@ -197,3 +197,31 @@ def test_unported_decode_modes_raise(setup):
     with pytest.raises(NotImplementedError, match="A11"):
         uv.inference_speech(tp, tcfg, torch.zeros(2, 32, 64), tokens.repeat(2, 1),
                             mask.repeat(2, 1))
+
+
+def test_head_split_wrapper_matches_tpu_wrapper_interpret(setup):
+    """fused_decode_trunk over the head-split cache [L, 1, H, T, hd] against
+    the TPU package's wrapper in interpret mode (fp32, tolerance 1e-5); the
+    returned cache keeps the layout, and unflatten_cache inverts
+    flatten_cache."""
+    _, _, jp, tp = setup
+    T, position, heads = 64, 41, 4
+    rng = np.random.default_rng(17)
+    k = rng.standard_normal((2, 1, heads, T, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 1, heads, T, 16)).astype(np.float32)
+    hidden = rng.standard_normal((1, 1, 64)).astype(np.float32)
+    mask = np.zeros((1, T), np.int32)
+    mask[0, : position + 1] = 1
+    mask[0, 2:7] = 0
+    ref, rcache = jax_decode_layer.fused_decode_trunk(
+        jp["gpt"], jnp.asarray(hidden), jax_gpt2.KVCache(jnp.asarray(k), jnp.asarray(v)),
+        jnp.int32(position), jnp.asarray(mask), heads=heads, interpret=True)
+    cache = gpt2.KVCache(torch.from_numpy(k.copy()), torch.from_numpy(v.copy()))
+    got, gcache = decode_layer.fused_decode_trunk(tp["gpt"], torch.from_numpy(hidden), cache,
+                                                  position, torch.from_numpy(mask), heads)
+    assert tuple(gcache.k.shape) == k.shape and decode_layer.fused_decode_trunk_flat.launches == 0
+    np.testing.assert_allclose(_np(got), _np(ref), atol=TOL, rtol=0)
+    np.testing.assert_allclose(_np(gcache.k), _np(rcache.k), atol=TOL, rtol=0)
+    np.testing.assert_allclose(_np(gcache.v), _np(rcache.v), atol=TOL, rtol=0)
+    back = decode_layer.unflatten_cache(*decode_layer.flatten_cache(cache), heads)
+    assert torch.equal(back.k, cache.k) and torch.equal(back.v, cache.v)
