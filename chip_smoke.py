@@ -11,7 +11,14 @@
    warm-up: the kernel as the replay of a CUDA graph of its launches (device
    time, `ms`) and as eager calls (host launch cost included, `eager_ms`),
    the plain version as eager calls.  fp32 checks run with TF32 off.
-   - K1, the anti-alias activation, at the six vocoder stage shapes.
+   - K1, the anti-alias activation, at the six vocoder stage shapes (timed,
+     with each stage's share of its bound in `per_shape`), and at the split
+     points of its design (odd T at B > 1, T from 1 to 17, T beside a
+     thread's outputs, a block step and a multi-step block run, rows at an
+     odd address), with planted faults the tolerance must see (a halo
+     dropped, the edge clamp lost).  Then a profile of one flagship bf16
+     vocode: K1's device time, the convolutions', the rest, the device's
+     idle share and the K1 wrapper's host time per call.
    - K2, the decode trunk, on each tier: bf16 weights, int8, fused int4, and
      bf16 weights over an fp8 cache, with planted faults the tolerance must
      see (mask faults; int4 nibbles swapped; int4 MLP group scales on the
@@ -50,7 +57,8 @@
    step, K1 109 times per vocoder call, and a seeded request's codes the same
    alone and among seven others; a profile of two 16-step ticks of the full
    pool.
-7. Prints a `{"kernels": [...]}` line (K2 and K4 one entry per tier, with
+7. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
+   ms and share of its bound; K2 and K4 one entry per tier, with
    `launches_per_call` and `gbytes_per_s`); before it, on a line of its
    own, the previous design's K2 and K4 times as PERF.md records them
    (quoted, not measured in the run); the card line, and as the last line
@@ -185,31 +193,187 @@ def check(name: str, err: float, tol: float, **extra) -> None:
         raise SmokeFailure(f"{name}: max|diff| {err} > tol {tol}")
 
 
-def kernel_checks_anti_alias(torch, filters, k1):
-    """K1 at the six stage shapes of a 200-code sentence, bf16 and fp32, plus
-    a ragged T and a T < 16.  Returns its kernels-line entry (bf16 timings
-    summed over one vocode: 18 calls per stage plus activation_post)."""
-    g = torch.Generator(device="cuda").manual_seed(0)
+def k1_stage_shapes():
+    """(C, T) of K1's calls at the six BigVGAN stages of one flagship vocode
+    of N_CODES codes."""
     C0, rates = 1536, [4, 4, 4, 4, 2, 2]
     stages, T = [], N_CODES
     for i, u in enumerate(rates):
         T *= u
         stages.append((C0 // 2 ** (i + 1), T))
-    shapes = stages + [(96, 1003), (24, 7)]
+    return stages
+
+
+def k1_vocode_calls(stages):
+    """K1's calls per stage in one vocode: 18 activations per stage (three
+    AMP blocks of six), plus activation_post at the last stage's shape."""
+    counts = {s: 18 for s in stages}
+    counts[stages[-1]] += 1
+    return counts
+
+
+def k1_input_sets(torch, g, B: int, C: int, T: int, dtype):
+    """Input sets (x, alpha, beta) for K1 at [B, C, T], enough of them to
+    rotate past the 50 MB L2 when timed."""
+    nbytes = B * C * T * torch.tensor([], dtype=dtype).element_size()
+    sets = []
+    for _ in range(max(2, min(64, math.ceil(100e6 / nbytes)))):
+        x = torch.randn(B, C, T, generator=g, device="cuda").to(dtype)
+        a = (0.3 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+        b = (0.3 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+        sets.append((x, a, b))
+    return sets
+
+
+def vocode_profile(torch, label: str) -> dict:
+    """Where one flagship bf16 vocode of N_CODES codes spends its time
+    (random weights from a fixed seed): the eager wall ms of a vocode, the
+    device time of K1 (summed over its launches), of the convolutions (every
+    kernel that is neither K1 nor PyTorch's own `at::native` kernels) and of
+    the other ops under torch.profiler, the device's idle share of the
+    profiled vocode, and the K1 wrapper's host µs per eager call (2000 calls
+    on a tiny input).  Prints and returns them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.config import BigVGANConfig
+    from indextts_tpu_torch.models import bigvgan
+    from indextts_tpu_torch.ops.cuda.anti_alias import fused_anti_alias_activation as k1
+
+    cfg = BigVGANConfig()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = bigvgan.init_params(cfg, g, torch.bfloat16, "cuda")
+    latent = torch.randn(1, N_CODES, cfg.gpt_dim, generator=g, device="cuda").bfloat16()
+    mel = torch.randn(1, 300, cfg.num_mels, generator=g, device="cuda").bfloat16()
+    run = lambda: bigvgan.forward(params, latent, mel, cfg)  # noqa: E731
+    with torch.no_grad():
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+        for _ in range(3):   # a trace that came back without device events is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.key_averages() if dev(e) > 0]
+            if kernels:
+                break
+        else:
+            raise SmokeFailure(f"{label}: three profiles with no device time")
+        groups = {"K1": [], "convolutions": [], "other": []}
+        for e in kernels:
+            key = ("K1" if "anti_alias" in e.key else
+                   "other" if "at::native" in e.key else "convolutions")
+            groups[key].append(e)
+        busy = sum(dev(e) for e in kernels) / 1e3
+        x = torch.randn(1, 24, 8, generator=g, device="cuda").bfloat16()
+        a = torch.zeros(24, device="cuda", dtype=torch.bfloat16)
+        k1(x, a, a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            k1(x, a, a)
+        host_us = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    out = {"phase": f"vocode profile {label}", "codes": N_CODES, "samples": N_CODES * 1024,
+           "eager_wall_ms": walls, "profiled_wall_ms": wall, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "wrapper_host_us_per_eager_call": host_us}
+    for key, evs in groups.items():
+        out[f"{key}_device_ms"] = sum(dev(e) for e in evs) / 1e3
+        out[f"{key}_launches"] = sum(e.count for e in evs)
+        out[f"{key}_top"] = {e.key[:80]: dev(e) / 1e3
+                             for e in sorted(evs, key=dev, reverse=True)[:4]}
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_faults(torch, filters, x, a, b, piece: int) -> dict:
+    """The plain version with a planted fault, where the shape can show it:
+    (i) "halo dropped", each row computed in independent pieces of `piece`
+    outputs, each padded by replicate; (ii) "edge clamp lost", the first and
+    last three outputs taken from the interior formula over replicate-padded
+    x (the padding's own pairs activated, not the clamped activated signal)."""
+    import torch.nn.functional as F
+
+    T = x.shape[-1]
+    faults = {}
+    if T > piece:
+        faults["halo dropped"] = torch.cat(
+            [filters.anti_aliased_activation(x[..., s:s + piece], a, b)
+             for s in range(0, T, piece)], dim=-1)
+    if T >= 2:
+        xp = F.pad(x.float(), (6, 6), mode="replicate").to(x.dtype)
+        faults["edge clamp lost"] = filters.anti_aliased_activation(xp, a, b)[..., 6:-6]
+    return faults
+
+
+def k1_run_shapes(plan, dtype) -> list:
+    """[B, C, T] shapes whose T is 1 and 8 below and above twice a block's
+    run (block_step x steps, steps >= 2) as the kernel plans that very call:
+    the ragged last step of a multi-step block, on the scalar path (odd T)
+    and the 16-byte path.  Found by search over C, since the plan follows the
+    card's resident blocks."""
+    step = plan(1, 16, 1024, dtype)["block_step"]
+    for C in range(16, 4096, 8):
+        for steps in (2, 3, 4):
+            shapes = []
+            for d in (-8, -1, 1, 8):
+                run = steps * step
+                p = plan(1, C, 2 * run + d, dtype)
+                if p["steps"] == steps and p["steps"] * p["block_step"] == run:
+                    shapes.append((1, C, 2 * run + d))
+            if len(shapes) == 4:
+                return shapes
+    raise SmokeFailure("K1: no shape found whose T is beside twice a multi-step block run")
+
+
+def kernel_checks_anti_alias(torch, filters, k1, plan):
+    """K1 against its plain version, bf16 and fp32: at the six stage shapes of
+    a 256-code vocode, a ragged T and a T < 16 (all timed), and at the split
+    points of its design (checked only): B = 3 and 2 with odd T, T from 1 to
+    17 and at a thread's outputs and one either side, T one below and above
+    a block step, T beside twice a multi-step block run, and rows at an odd
+    address (the scalar path at an aligned T).  Each planted fault (halo
+    dropped, edge clamp lost) must land beyond the tolerance wherever the
+    shape can show it (the edge fault in fp32: in bf16 it stays under one
+    ulp).  Returns its kernels-line entry: bf16 timings summed over one
+    vocode (18 calls per stage plus activation_post), and per stage its ms
+    and share of the bound."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stages = k1_stage_shapes()
+    timed = [(1, C, T) for C, T in stages] + [(1, 96, 1003), (1, 24, 7)]
     per_call = {}
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for C, T in shapes:
-            elt = torch.tensor([], dtype=dtype).element_size()
-            nbytes = C * T * elt
-            n_sets = max(2, min(64, math.ceil(100e6 / nbytes)))  # rotate past the L2
-            sets = []
-            for _ in range(n_sets):
-                x = torch.randn(1, C, T, generator=g, device="cuda").to(dtype)
+        elt = torch.tensor([], dtype=dtype).element_size()
+        first = plan(1, 24, 1024, dtype)
+        V, step = first["outputs_per_thread"], first["block_step"]
+        checked = [(3, 24, 1003), (2, 96, 4097)] + [
+            (2, 24, T) for T in sorted({1, 2, 3, 5, 8, 9, 15, 17, V - 1, V, V + 1})]
+        checked += [(1, 48, step - 1), (1, 48, step + 1)] + k1_run_shapes(plan, dtype)
+        checked += [("odd address", 2, 24, 1024)]
+        for shape in timed + checked:
+            if shape[0] == "odd address":   # contiguous rows at an odd element offset
+                _, B, C, T = shape
+                flat = torch.randn(B * C * T + 1, generator=g, device="cuda").to(dtype)
+                x = flat[1:].view(B, C, T)
                 a = (0.3 * torch.randn(C, generator=g, device="cuda")).to(dtype)
-                b = (0.3 * torch.randn(C, generator=g, device="cuda")).to(dtype)
-                sets.append((x, a, b))
+                sets = [(x, a, a.flip(0).contiguous())]
+            else:
+                B, C, T = shape
+                sets = k1_input_sets(torch, g, B, C, T, dtype)
             x, a, b = sets[0]
+            p = plan(B, C, T, dtype, aligned=x.data_ptr() % 16 == 0)
             y = k1(x, a, b)
             ref = filters.anti_aliased_activation(x, a, b)
             torch.cuda.synchronize()
@@ -218,33 +382,58 @@ def kernel_checks_anti_alias(torch, filters, k1):
             # bf16: one ulp of the largest output (both round an fp32 sum);
             # fp32: summation order only
             tol = scale * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5 * max(1.0, scale)
-            iters = max(20, n_sets)
-            ms = cuda_ms(k1, sets, iters)
-            eager_ms = cuda_ms(k1, sets, iters, graph=False)
-            plain_ms = cuda_ms(filters.anti_aliased_activation, sets, max(5, iters // 4),
-                               graph=False)
-            bytes_moved = 2 * nbytes + 2 * C * elt
-            bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-            bound_ops = K1_FLOPS_PER_ELEM * C * T / FP32_FLOPS * 1e3
-            check(f"K1 anti_alias {str(dtype)[6:]} C={C} T={T}", err, tol, ms=ms,
-                  eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
-                  bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+            pieces = [n for n in (p["block_step"] * p["steps"], p["block_step"],
+                                  32 * p["outputs_per_thread"]) if n < T]
+            fault_err = {}
+            for name, fy in k1_faults(torch, filters, x, a, b,
+                                      pieces[0] if pieces else T).items():
+                fault_err[name] = (fy.float() - ref.float()).abs().max().item()
+                # the edge fault moves the first and last three outputs by a
+                # few thousandths of the scale, under one bf16 ulp: the fp32
+                # run (the same kernel code) must see it, the bf16 run reports it
+                must_show = dtype == torch.float32 or name == "halo dropped"
+                if must_show and fault_err[name] <= tol:
+                    raise SmokeFailure(f"K1 {str(dtype)[6:]} {shape}: a planted fault ({name}) "
+                                       f"moves the output by {fault_err[name]}, within tol {tol}")
+            timing = {}
+            if shape in timed:
+                iters = max(20, len(sets))
+                nbytes = B * C * T * elt
+                bytes_moved = 2 * nbytes + 2 * C * elt
+                bb = bytes_moved / HBM_BYTES_PER_S * 1e3
+                bo = K1_FLOPS_PER_ELEM * B * C * T / FP32_FLOPS * 1e3
+                timing = {"ms": cuda_ms(k1, sets, iters),
+                          "eager_ms": cuda_ms(k1, sets, iters, graph=False),
+                          "plain_ms": cuda_ms(filters.anti_aliased_activation, sets,
+                                              max(5, iters // 4), graph=False),
+                          "bound_ms": max(bb, bo),
+                          "bound_by": "bytes" if bb >= bo else "operations"}
+                if dtype == torch.bfloat16:
+                    per_call[(C, T)] = {**timing, "bound_bytes_ms": bb, "bound_ops_ms": bo,
+                                        "steps": p["steps"], "blocks": p["blocks"]}
+            check(f"K1 anti_alias {str(dtype)[6:]} B={B} C={C} T={T}"
+                  + (" odd address" if shape[0] == "odd address" else ""), err, tol,
+                  plan=p, planted_fault_err=fault_err, **timing)
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
-                per_call[(C, T)] = (ms, plain_ms, bound_bytes, bound_ops, eager_ms)
-    # one vocode: 18 activations per stage, plus activation_post at the last shape
-    counts = {s: 18 for s in stages}
-    counts[stages[-1]] += 1
-    total = lambda j: sum(n * per_call[s][j] for s, n in counts.items())  # noqa: E731
-    bb, bo = total(2), total(3)
+            del sets
+    counts = k1_vocode_calls(stages)
+    total = lambda key: sum(n * per_call[s][key] for s, n in counts.items())  # noqa: E731
+    bb, bo = total("bound_bytes_ms"), total("bound_ops_ms")
+    per_shape = {f"C={C} T={T}": {
+        "ms": per_call[(C, T)]["ms"], "bound_us": per_call[(C, T)]["bound_ms"] * 1e3,
+        "share_of_bound": per_call[(C, T)]["bound_ms"] / per_call[(C, T)]["ms"],
+        "calls_per_vocode": counts[(C, T)], "steps": per_call[(C, T)]["steps"],
+        "blocks": per_call[(C, T)]["blocks"]} for C, T in stages}
     return {"name": "fused_anti_alias_activation", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/anti_alias.cu",
             "replaces": "indextts_tpu/ops/pallas/anti_alias.py:242",
             "max_abs_err": max_err, "tolerance": "1 bf16 ulp of max|plain| per shape",
-            "ms": total(0), "eager_ms": total(4), "plain_ms": total(1),
+            "ms": total("ms"), "eager_ms": total("eager_ms"), "plain_ms": total("plain_ms"),
             "bound_ms": max(bb, bo),
             "bound_by": "bytes" if bb >= bo else "operations", "library_ms": None,
-            "per": f"one bf16 vocode of {N_CODES} codes: 109 calls over 6 shapes"}
+            "per": f"one bf16 vocode of {N_CODES} codes: 109 calls over 6 shapes",
+            "per_shape": per_shape}
 
 
 def decode_inputs(torch, gpt2, L: int, D: int, H: int, T: int, device, dtype):
@@ -1230,7 +1419,7 @@ def main(argv=None) -> int:
     from indextts_tpu_torch.models import gpt2
     from indextts_tpu_torch.models import unified_voice as uv
     from indextts_tpu_torch.ops import filters, quantization
-    from indextts_tpu_torch.ops.cuda import _build, decode_layer, permute, pool_trunk
+    from indextts_tpu_torch.ops.cuda import _build, anti_alias, decode_layer, permute, pool_trunk
     from indextts_tpu_torch.ops.cuda.anti_alias import fused_anti_alias_activation as k1
     from indextts_tpu_torch.serve import httpd
 
@@ -1258,11 +1447,12 @@ def main(argv=None) -> int:
         return 0
 
     fp8_conversion_check(torch, _build)
-    entries = [kernel_checks_anti_alias(torch, filters, k1),
+    entries = [kernel_checks_anti_alias(torch, filters, k1, anti_alias.plan),
                *kernel_checks_decode(torch, gpt2, decode_layer, quantization),
                kernel_checks_permute(torch, permute),
                *kernel_checks_pool(torch, gpt2, pool_trunk, quantization)]
 
+    vocode_profile(torch, "flagship bf16 vocode")
     small_agreement(torch, engine_mod, prompt)
     pool_small_agreement(torch, engine_mod, pool_trunk, prompt)
     kernels = {"K1": k1, "K2": decode_layer.fused_decode_trunk_flat,

@@ -32,6 +32,7 @@ _I = ctypes.c_int
 # argtypes of every C entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
     "anti_alias_activation": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    "anti_alias_plan": (_I, [_I, _I, _I, _I, _I, _P]),
     # forms, hidden, out, k, v, mask, pos, L, D, H, T; ln1; qkv (w, s, groups,
     # bias); proj; ln2; fc; mproj; scratch, stream
     "decode_trunk_step": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]

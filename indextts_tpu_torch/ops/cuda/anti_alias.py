@@ -3,8 +3,8 @@ kernel `csrc/anti_alias.cu` (counterpart of the TPU kernel
 indextts_tpu/ops/pallas/anti_alias.py::fused_anti_alias_activation).
 
 The kernel reads x once and writes y once; the 2x-rate signal stays in
-shared memory, so device memory bandwidth bounds it (design notes in the
-source).  The plain version is `ops.filters.anti_aliased_activation`; this
+registers, a thread's window of it shared with its neighbours by warp
+shuffles (design notes, and what bounds it, in the source).  The plain version is `ops.filters.anti_aliased_activation`; this
 wrapper takes it only for tensors on the CPU.  For a CUDA tensor it launches
 the kernel or raises.
 """
@@ -53,3 +53,18 @@ def fused_anti_alias_activation(x: torch.Tensor, alpha: torch.Tensor, beta: torc
 
 
 fused_anti_alias_activation.launches = 0
+
+_PLAN_KEYS = ("vec16", "outputs_per_thread", "threads", "block_step", "steps", "blocks")
+
+
+def plan(B: int, C: int, T: int, dtype: torch.dtype, aligned: bool = True) -> dict:
+    """The launch the kernel makes for a [B, C, T] input of `dtype` on the
+    current card (rows 16-byte aligned when `aligned`): whether it takes the
+    16-byte path, the outputs per thread, the threads per block, the outputs
+    a block covers per step, the steps per block and the blocks.  A block
+    covers `block_step * steps` consecutive outputs of one row."""
+    lib = _build.load()
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    rc = lib.anti_alias_plan(B, C, T, int(dtype == torch.bfloat16), int(aligned), out)
+    _build.check(lib, rc, "anti_alias_plan")
+    return dict(zip(_PLAN_KEYS, out))

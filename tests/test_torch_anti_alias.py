@@ -26,8 +26,15 @@ def _inputs(B, C, T, seed):
     return x, alpha, beta
 
 
+# The CUDA kernel's split points (chip_smoke.py holds the kernel against the
+# plain version at the same shapes): a thread owns 24 outputs, a block step
+# 1536; B > 1 with an odd T takes its scalar path; T < 7 clamps both edges.
+SPLITS = [(1, 4, 23), (1, 4, 24), (1, 4, 25), (1, 2, 1535), (1, 2, 1536), (1, 2, 1537),
+          (3, 4, 1003), (1, 3, 2), (2, 3, 3), (2, 3, 9), (2, 3, 17)]
+
+
 @pytest.mark.parametrize("B,C,T", [(1, 3, 1), (2, 4, 5), (1, 8, 7), (1, 5, 15),
-                                   (1, 8, 16), (2, 6, 101)])
+                                   (1, 8, 16), (2, 6, 101)] + SPLITS)
 def test_plain_matches_jax_composition(B, C, T):
     x, a, b = _inputs(B, C, T, T)
     ref = np.asarray(jax_filters.anti_aliased_activation(
@@ -38,10 +45,20 @@ def test_plain_matches_jax_composition(B, C, T):
     np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("C,T", [(8, 40), (128, 600), (16, 256)])
+@pytest.mark.parametrize("C,T", [(8, 40), (128, 600), (16, 256)]
+                         + [(C, T) for B, C, T in SPLITS if B == 1])
 def test_wrapper_on_cpu_matches_tpu_kernel_interpret(C, T):
     """(128, 600) runs three tiles with a ragged last one; (8, 40) one ragged."""
-    x, a, b = _inputs(1, C, T, C + T)
+    _wrapper_against_interpret(1, C, T)
+
+
+@pytest.mark.parametrize("B,C,T", [(B, C, T) for B, C, T in SPLITS if B > 1])
+def test_wrapper_on_cpu_matches_tpu_kernel_interpret_batched(B, C, T):
+    _wrapper_against_interpret(B, C, T)
+
+
+def _wrapper_against_interpret(B, C, T):
+    x, a, b = _inputs(B, C, T, C + T)
     ref = np.asarray(jax_anti_alias.fused_anti_alias_activation(
         jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), force_pallas=True, mxu=False))
     before = anti_alias.fused_anti_alias_activation.launches
