@@ -12,7 +12,9 @@
    time, `ms`) and as eager calls (host launch cost included, `eager_ms`),
    the plain version as eager calls.  fp32 checks run with TF32 off.
    - K1, the anti-alias activation, at the six vocoder stage shapes (timed,
-     with each stage's share of its bound in `per_shape`), and at the split
+     with each stage's share of its bound in `per_shape`), at the same six
+     shapes for an infer_fast bucket of 4 rows (timed, `per_shape_b4`), and
+     at the split
      points of its design (odd T at B > 1, T from 1 to 17, T beside a
      thread's outputs, a block step and a multi-step block run, rows at an
      odd address), with planted faults the tolerance must see (a halo
@@ -36,21 +38,33 @@
      per-kernel breakdown of one step; and the determinism check: one row's
      output and new K/V rows bit-equal alone (S = 1), among 7 others (S = 8)
      and among 63 others (S = 64), in other slots, on both tiers.
+   - `sample_token` with its shortlist in JAX's tie order (a stable sort)
+     timed against the same call on `torch.topk` and on two exact
+     shortlists built on it, at [1, 8194] and [4, 8194] bf16-rounded logits.
 3. Greedy beam-3 decode at full width under reorder="pallas" (K3) and
    reorder="full" (index_select): the codes must be equal, and K3 must
    launch once per step.
 4. Runs the main paths on a small fp32 model twice, on the card (kernels)
    and on the CPU (plain versions), and holds codes and wavs together:
-   sampling and default beam decode, and int8 and int4 weights; and the
-   continuous pool through K4 with staged refill, whose greedy codes must
+   sampling and default beam decode, int8 and int4 weights, `infer_fast` at
+   bucket size 4 on five sentences (num_beams=1 and beam-3) and one guided
+   request (cfg_scale 3); and the continuous pool through K4 with staged refill, whose greedy codes must
    equal the CPU pool's, single-row decode's and the card's pool without K4.
 5. Synthesizes requests through `IndexTTS.infer` at the full flagship width
    with random weights from a fixed seed: PR 1's three sampling requests;
    one with no generation arguments (beam-3 sampling, the reference
-   default); one with an fp8 KV cache; one each on int8 and int4 engines;
-   one default-beam request on the int8 engine.  Checks the wavs (int16,
-   code_len * 1024 samples) and each path's kernel launches (K1 109 times
-   per vocode, K2 once per single-row decode step, none on beam paths).
+   default); one with an fp8 KV cache; one guided (cfg_scale 3: two rows,
+   no K2); one each on int8 and int4 engines; one default-beam request on
+   the int8 engine.  Through `infer_fast` (buckets of 4, 100 tokens a
+   sentence) a five-sentence text in buckets of 4 and 1 rows, at the
+   defaults (beam-3; its RTF beside default_beam3's) and at num_beams=1
+   sampling (K2 exactly for the single-row bucket's steps).  An
+   `infer_stream` request whose chunks must be bit-equal to the
+   two_sentences request's wav.  Checks the wavs (int16, code_len * 1024
+   samples) and each path's kernel launches (K1 109 times per vocode, K2
+   once per single-row decode step, none on beam or guided paths).  Then
+   `serve()` without --continuous: /tts with no mode (infer_fast, beam-3)
+   and /tts_stream, each a 24 kHz int16 wav, K1 109 times a vocoder call.
 6. Serves concurrent HTTP requests at the full width through `serve()` with
    the continuous pool on K4 (8 slots), on the bf16 engine and on the int8
    engine (e4m3 cache): every response a 24 kHz int16 wav, K4 once per pool
@@ -339,7 +353,8 @@ def k1_run_shapes(plan, dtype) -> list:
 
 def kernel_checks_anti_alias(torch, filters, k1, plan):
     """K1 against its plain version, bf16 and fp32: at the six stage shapes of
-    a 256-code vocode, a ragged T and a T < 16 (all timed), and at the split
+    a 256-code vocode, a ragged T and a T < 16 (all timed), in bf16 also at
+    the six stage shapes of an infer_fast bucket of 4 rows (timed), and at the split
     points of its design (checked only): B = 3 and 2 with odd T, T from 1 to
     17 and at a thread's outputs and one either side, T one below and above
     a block step, T beside twice a multi-step block run, and rows at an odd
@@ -347,11 +362,12 @@ def kernel_checks_anti_alias(torch, filters, k1, plan):
     dropped, edge clamp lost) must land beyond the tolerance wherever the
     shape can show it (the edge fault in fp32: in bf16 it stays under one
     ulp).  Returns its kernels-line entry: bf16 timings summed over one
-    vocode (18 calls per stage plus activation_post), and per stage its ms
-    and share of the bound."""
+    vocode (18 calls per stage plus activation_post), per stage its ms and
+    share of the bound, and the same for a 4-row vocode (`per_shape_b4`)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     stages = k1_stage_shapes()
     timed = [(1, C, T) for C, T in stages] + [(1, 96, 1003), (1, 24, 7)]
+    bucket = [(4, C, T) for C, T in stages]        # one vocode of a 4-row bucket
     per_call = {}
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -362,7 +378,7 @@ def kernel_checks_anti_alias(torch, filters, k1, plan):
             (2, 24, T) for T in sorted({1, 2, 3, 5, 8, 9, 15, 17, V - 1, V, V + 1})]
         checked += [(1, 48, step - 1), (1, 48, step + 1)] + k1_run_shapes(plan, dtype)
         checked += [("odd address", 2, 24, 1024)]
-        for shape in timed + checked:
+        for shape in timed + (bucket if dtype == torch.bfloat16 else []) + checked:
             if shape[0] == "odd address":   # contiguous rows at an odd element offset
                 _, B, C, T = shape
                 flat = torch.randn(B * C * T + 1, generator=g, device="cuda").to(dtype)
@@ -396,7 +412,7 @@ def kernel_checks_anti_alias(torch, filters, k1, plan):
                     raise SmokeFailure(f"K1 {str(dtype)[6:]} {shape}: a planted fault ({name}) "
                                        f"moves the output by {fault_err[name]}, within tol {tol}")
             timing = {}
-            if shape in timed:
+            if shape in timed or shape in bucket:
                 iters = max(20, len(sets))
                 nbytes = B * C * T * elt
                 bytes_moved = 2 * nbytes + 2 * C * elt
@@ -409,8 +425,9 @@ def kernel_checks_anti_alias(torch, filters, k1, plan):
                           "bound_ms": max(bb, bo),
                           "bound_by": "bytes" if bb >= bo else "operations"}
                 if dtype == torch.bfloat16:
-                    per_call[(C, T)] = {**timing, "bound_bytes_ms": bb, "bound_ops_ms": bo,
-                                        "steps": p["steps"], "blocks": p["blocks"]}
+                    per_call[(B, C, T)] = {**timing, "bound_bytes_ms": bb,
+                                           "bound_ops_ms": bo, "steps": p["steps"],
+                                           "blocks": p["blocks"]}
             check(f"K1 anti_alias {str(dtype)[6:]} B={B} C={C} T={T}"
                   + (" odd address" if shape[0] == "odd address" else ""), err, tol,
                   plan=p, planted_fault_err=fault_err, **timing)
@@ -418,13 +435,24 @@ def kernel_checks_anti_alias(torch, filters, k1, plan):
                 max_err = max(max_err, err)
             del sets
     counts = k1_vocode_calls(stages)
-    total = lambda key: sum(n * per_call[s][key] for s, n in counts.items())  # noqa: E731
+
+    def total(key, B=1):
+        return sum(n * per_call[(B,) + s][key] for s, n in counts.items())
+
+    def stage_table(B):
+        return {f"C={C} T={T}": {
+            "ms": per_call[(B, C, T)]["ms"], "bound_us": per_call[(B, C, T)]["bound_ms"] * 1e3,
+            "share_of_bound": per_call[(B, C, T)]["bound_ms"] / per_call[(B, C, T)]["ms"],
+            "calls_per_vocode": counts[(C, T)], "steps": per_call[(B, C, T)]["steps"],
+            "blocks": per_call[(B, C, T)]["blocks"]} for C, T in stages}
+
     bb, bo = total("bound_bytes_ms"), total("bound_ops_ms")
-    per_shape = {f"C={C} T={T}": {
-        "ms": per_call[(C, T)]["ms"], "bound_us": per_call[(C, T)]["bound_ms"] * 1e3,
-        "share_of_bound": per_call[(C, T)]["bound_ms"] / per_call[(C, T)]["ms"],
-        "calls_per_vocode": counts[(C, T)], "steps": per_call[(C, T)]["steps"],
-        "blocks": per_call[(C, T)]["blocks"]} for C, T in stages}
+    bb4, bo4 = total("bound_bytes_ms", 4), total("bound_ops_ms", 4)
+    per_shape = stage_table(1)
+    per_shape_b4 = {"per_vocode": {"ms": total("ms", 4), "plain_ms": total("plain_ms", 4),
+                                   "bound_ms": max(bb4, bo4),
+                                   "share_of_bound": max(bb4, bo4) / total("ms", 4)},
+                    **stage_table(4)}
     return {"name": "fused_anti_alias_activation", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/anti_alias.cu",
             "replaces": "indextts_tpu/ops/pallas/anti_alias.py:242",
@@ -433,7 +461,68 @@ def kernel_checks_anti_alias(torch, filters, k1, plan):
             "bound_ms": max(bb, bo),
             "bound_by": "bytes" if bb >= bo else "operations", "library_ms": None,
             "per": f"one bf16 vocode of {N_CODES} codes: 109 calls over 6 shapes",
-            "per_shape": per_shape}
+            "per_shape": per_shape, "per_shape_b4": per_shape_b4}
+
+
+def sampling_shortlist_timing(torch, sampling) -> None:
+    """The cost of JAX's tie order in sampling.  `sample_token` takes its
+    shortlist by a stable descending sort of the row (`sampling._top_k`);
+    the same call is timed with three other shortlists: `torch.topk` (no
+    order among ties: the cost to beat), and two exact ones built on it,
+    `topk_reorder` (the top k + 16, then two small stable sorts into value
+    descending, index ascending order; exact while fewer than 17 values tie
+    at the k-th, checked on these inputs) and `int64_key` (each float's
+    order-preserving int32 in the high word, the reversed index in the low
+    word, one `torch.topk`).  At [1, 8194] and [4, 8194] bf16-rounded logits
+    with planted ties; eager calls as the decode loop makes them, in turns
+    (a b c d d c b a, 500 calls a turn), and each shortlist alone in graph
+    replay (device time).  The exact ones must equal the sort."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    V, k, pad = 8194, 30, 16
+    rev = (V - 1 - torch.arange(V, device="cuda")).to(torch.int64)
+
+    def topk_reorder(x, kk):
+        vals, idx = torch.topk(x, kk + pad, dim=-1)
+        idx, perm = torch.sort(idx, dim=-1)
+        vals, perm = torch.sort(vals.gather(-1, perm), dim=-1, descending=True, stable=True)
+        return vals[..., :kk], idx.gather(-1, perm)[..., :kk]
+
+    def int64_key(x, kk):
+        b = x.view(torch.int32)
+        _, idx = torch.topk(((b ^ ((b >> 31) & 0x7FFFFFFF)).to(torch.int64) << 32) | rev, kk,
+                            dim=-1)
+        return x.gather(-1, idx), idx
+
+    shipped = sampling._top_k
+    variants = {"sort": shipped, "topk": lambda x, kk: torch.topk(x, kk, dim=-1),
+                "topk_reorder": topk_reorder, "int64_key": int64_key}
+    out = {"phase": "sampling shortlist: sample_token's stable sort vs other shortlists",
+           "V": V, "top_k": k}
+    for B in (1, 4):
+        x = (3 * torch.randn(B, V, generator=g, device="cuda")).bfloat16().float()
+        x[:, [5, 4000, 7000]] = x.max(-1, keepdim=True).values      # planted ties
+        want = shipped(x, k)
+        if not torch.equal(want[0], torch.topk(x, k).values) or \
+                int((x >= want[0][:, -1:]).sum(-1).max()) > k + pad:
+            raise SmokeFailure(f"sampling shortlist at B={B}: values differ from torch.topk, "
+                               "or too many ties at the k-th for topk_reorder")
+        for name in ("topk_reorder", "int64_key"):
+            got = variants[name](x, k)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise SmokeFailure(f"sampling shortlist {name} differs from the sort at B={B}")
+        token = {n: [] for n in variants}
+        for name in list(variants) + list(variants)[::-1]:
+            sampling._top_k = variants[name]
+            try:
+                token[name].append(cuda_ms(lambda v: sampling.sample_token(
+                    v, top_k=k, top_p=0.8, generator=g), [(x,)], 500, graph=False))
+            finally:
+                sampling._top_k = shipped
+        out[f"B={B}"] = {"sample_token_eager_ms": token,
+                         "sort_extra_ms": min(token["sort"]) - min(token["topk"]),
+                         "shortlist_graph_ms": {n: cuda_ms(f, [(x, k)], 100)
+                                                for n, f in variants.items()}}
+    emit(out)
 
 
 def decode_inputs(torch, gpt2, L: int, D: int, H: int, T: int, device, dtype):
@@ -1006,9 +1095,12 @@ def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> Non
     """The main paths on `device` (the kernels) against the same paths on the
     CPU (the plain versions), on a small model with the flagship's head width
     of 64, fp32 compute: sampling decode and the default beam-3 decode
-    (greedy), and int8 and int4 weights (quantization on, fp32 compute) at
-    num_beams=1.  Equal codes, and wavs within 4 int16 steps (sums run in
-    other orders; the int16 cast truncates)."""
+    (greedy), int8 and int4 weights (quantization on, fp32 compute) at
+    num_beams=1, `infer_fast` at bucket size 4 on five sentences (buckets of
+    4 and 1 rows) at num_beams=1 and beam-3, and one guided request
+    (cfg_scale 3, two rows through gpt2.decode_step).  Equal codes, and wavs
+    within 4 int16 steps (sums run in other orders; the int16 cast
+    truncates)."""
     import numpy as np
     from indextts_tpu_torch.config import Config
 
@@ -1018,18 +1110,27 @@ def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> Non
     master = engine_mod.IndexTTS(device="cpu", precision_config=fp32, **base)
     trees = (_to_numpy(master.gpt_params), _to_numpy(master.bigvgan_params))
     greedy = dict(do_sample=False, max_mel_tokens=24)
-    cases = [("sampling decode", fp32, dict(greedy, num_beams=1)),
-             ("default beam-3", fp32, greedy)]
+    one = "你好，欢迎使用语音合成。"
+    cases = [("sampling decode", fp32, dict(greedy, num_beams=1), "infer", one),
+             ("default beam-3", fp32, greedy, "infer", one)]
     for bits in ("int8", "int4"):
         cases.append((f"{bits} weights", {**fp32, "quantization": {
-            "enabled": True, "weight_dtype": bits}}, dict(greedy, num_beams=1)))
-    for name, precision, gen in cases:
+            "enabled": True, "weight_dtype": bits}}, dict(greedy, num_beams=1), "infer", one))
+    for nb in (1, 3):
+        cases.append((f"infer_fast buckets of 4, num_beams={nb}", fp32,
+                      dict(greedy, num_beams=nb, max_text_tokens_per_sentence=14,
+                           sentences_bucket_max_size=4), "infer_fast", SMALL_FIVE))
+    cases.append(("guided cfg_scale=3", fp32, dict(greedy, num_beams=1, cfg_scale=3.0),
+                  "infer", one))
+    for name, precision, gen, method, text in cases:
         ref = engine_mod.IndexTTS(device="cpu", precision_config=precision, **base)
         dut = engine_mod.IndexTTS(device=device, precision_config=precision, **base)
         ref.load_numpy_params(*trees)
         dut.load_numpy_params(*trees)
-        _, want = ref.infer(prompt, "你好，欢迎使用语音合成。", None, **gen)
-        _, got = dut.infer(prompt, "你好，欢迎使用语音合成。", None, **gen)
+        _, want = getattr(ref, method)(prompt, text, None, **gen)
+        _, got = getattr(dut, method)(prompt, text, None, **gen)
+        if method == "infer_fast" and dut.last_stats["buckets"] != [4, 1]:
+            raise SmokeFailure(f"small model, {name}: buckets {dut.last_stats['buckets']}")
         rc, dc = ref.last_stats["codes"], dut.last_stats["codes"]
         if len(rc) != len(dc) or any(not np.array_equal(a, b) for a, b in zip(rc, dc)):
             raise SmokeFailure(f"small model, {name}: codes {[c.tolist() for c in dc]} on "
@@ -1039,6 +1140,9 @@ def small_agreement(torch, engine_mod, prompt: str, device: str = "cuda") -> Non
               samples=int(got.shape[0]), code_lens=dut.last_stats["code_lens"])
 
 
+# five sentences of 13, 13, 9, 13 and 11 tokens at 14 a sentence: buckets of
+# 4 and 1 rows at bucket size 4
+SMALL_FIVE = "今天天气很好。我们去散步吧。明天再见。谢谢你的帮助。请再说一遍。"
 POOL_TEXTS = ["你好，欢迎使用语音合成。", "今天天气很好。", "我们去散步吧。", "The sun rises.",
               "A small dog barks.", "请再说一遍。", "Good morning to you.", "明天见。",
               "It is raining.", "谢谢你的帮助。"]
@@ -1333,12 +1437,162 @@ def run_request(torch, kernels, tts, name: str, text: str, max_tokens: int, prom
     return s, launches
 
 
-def end_to_end(torch, engine_mod, kernels, prompt: str):
-    """Requests through IndexTTS.infer at full width: PR 1's three sampling
-    requests, the reference default (no generation arguments: beam-3
-    sampling), an fp8 KV cache, and int8 / int4 engines.  Each path is run
-    with the counts at 0 and read after it.  Returns the launches of each
-    kernels-line entry on its paths."""
+# five sentences of 56-75 tokens at 100 a sentence: buckets of 4 and 1 rows
+FIVE = ("The quick brown fox jumps over the lazy dog while the morning sun rises slowly above "
+        "the quiet hills, the birds begin to sing in the tall trees, and a cold wind comes "
+        "down from the mountains to the sleeping village. In the afternoon the children come "
+        "home from school, drop their heavy bags by the kitchen door, eat a slice of warm "
+        "bread with honey, and play in the garden with the dog until their mother calls them "
+        "in for dinner. The old farmer walks along the river every morning to check on his "
+        "sheep and his two brown horses, and he counts the young lambs twice before the long "
+        "day of hard work in the wide green fields begins again. When the evening comes the "
+        "whole family sits together at the long wooden table, shares the soup and the bread, "
+        "and talks about everything that happened in the busy town and on the farm since the "
+        "early morning. Late at night the little town grows quiet, the last yellow lights in "
+        "the windows go out one by one, and only the wind moves through the empty streets, "
+        "the dark gardens and the old trees beside the church.")
+TWO = ("The quick brown fox jumps over the lazy dog while the morning sun rises slowly above "
+       "the quiet hills. In the afternoon the children come home from school and play in the "
+       "garden until dinner.")
+
+
+def run_fast_request(torch, kernels, tts, name: str, text: str, prompt: str, **gen):
+    """One IndexTTS.infer_fast request (100 tokens a sentence, buckets of 4)
+    with every kernel count set to 0 just before it; checks the wav (int16,
+    sum(code_lens) * 1024 samples at 24 kHz), K1 109 times a bucket (one
+    vocoder call each) and no K3.  Returns (stats, launches by kernel)."""
+    from scipy.io import wavfile
+    import numpy as np
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = os.path.join(os.path.dirname(prompt), f"{name}.wav")
+    tts.infer_fast(prompt, text, out, max_text_tokens_per_sentence=100, **gen)
+    launches = {n: k.launches for n, k in kernels.items()}
+    s = tts.last_stats
+    sr, wav = wavfile.read(out)
+    expect = sum(s["code_lens"]) * 1024
+    emit({"request": name, "sentences": len(s["code_lens"]), "buckets": s["buckets"],
+          "bucket_steps": s["bucket_steps"], "code_lens": s["code_lens"],
+          "samples": int(wav.shape[0]), "sample_rate": sr, "rtf": s["rtf"],
+          "total_s": s["total_s"], "wav_seconds": s["wav_seconds"],
+          "decode_steps": s["decode_steps"],
+          "decode_steps_per_s": s["decode_steps"] / s["gpt_gen_time"],
+          "gpt_gen_s": s["gpt_gen_time"], "gpt_forward_enqueue_s": s["gpt_forward_time"],
+          "vocoder_enqueue_s": s["bigvgan_time"], "fetch_s": s["fetch_time"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+          "generation": {k: str(v) for k, v in gen.items()}})
+    if wav.dtype != np.int16 or wav.shape[0] != expect or sr != 24000:
+        raise SmokeFailure(f"{name}: wav {wav.dtype} {wav.shape} sr {sr}, "
+                           f"expected int16 of {expect} samples at 24000")
+    if sorted(s["buckets"]) != [1, 4]:
+        raise SmokeFailure(f"{name}: buckets {s['buckets']}, expected one of 4 rows and one "
+                           "of 1")
+    if launches["K1"] != K1_PER_VOCODE * len(s["buckets"]) or launches["K3"]:
+        raise SmokeFailure(f"{name}: launches {launches} for {len(s['buckets'])} buckets")
+    return s, launches
+
+
+def stream_request(torch, kernels, tts, prompt: str, two_sentences_wav: str) -> int:
+    """infer_stream of the two_sentences request's text and seed: the chunks,
+    concatenated, must be bit-equal to that request's wav (same seed, same
+    device, deterministic K2); K2 once a decode step, K1 109 times a chunk.
+    Returns the launches by kernel."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    for k in kernels.values():
+        k.launches = 0
+    stats = {}
+    chunks = [c for _, c in tts.infer_stream(prompt, TWO, max_text_tokens_per_sentence=40,
+                                             num_beams=1, do_sample=True, seed=102,
+                                             stats_out=stats)]
+    launches = {n: k.launches for n, k in kernels.items()}
+    _, ref = wavfile.read(two_sentences_wav)
+    wav = np.concatenate(chunks)
+    equal = wav.dtype == ref.dtype and np.array_equal(wav, ref)
+    emit({"request": "stream", "chunks": len(chunks), "samples": int(wav.shape[0]),
+          "bit_equal_to_two_sentences": bool(equal),
+          "time_to_first_audio_s": stats["time_to_first_audio"], "total_s": stats["total_s"],
+          "rtf": stats["rtf"], "decode_steps": stats["decode_steps"],
+          "code_lens": stats["code_lens"], "launches": launches})
+    if not equal:
+        raise SmokeFailure(f"stream: chunks differ from the two_sentences wav ({wav.shape} "
+                           f"against {ref.shape})")
+    if launches["K2"] != stats["decode_steps"] or launches["K1"] != K1_PER_VOCODE * len(chunks) \
+            or launches["K3"]:
+        raise SmokeFailure(f"stream: launches {launches} for {stats['decode_steps']} steps, "
+                           f"{len(chunks)} chunks")
+    return launches
+
+
+def served_plain(torch, httpd, kernels, tts, prompt: str) -> int:
+    """`serve()` without --continuous at the full width: /tts with no mode
+    (infer_fast, beam-3) and /tts_stream (infer_stream, beam-3), each on a
+    two-sentence text at 200 codes.  Each answer must be a 24 kHz int16 wav,
+    and K1 must launch 109 times a vocoder call.  Returns K1's launches."""
+    import io
+    import threading
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    vocodes = [0]
+    vocode = tts._vocode
+
+    def counted(*a):
+        vocodes[0] += 1
+        return vocode(*a)
+
+    tts._vocode = counted
+    srv = httpd.serve(None, os.path.join(HERE, "checkpoints_test"), host="127.0.0.1", port=0,
+                      engine_instance=tts)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    body = {"text": TWO, "audio_path": prompt, "seed": 9, "max_mel_tokens": 200,
+            "max_text_tokens_per_sentence": 40}
+    results = {}
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        for path in ("/tts", "/tts_stream"):
+            results[path] = _http(srv.server_address[1], path, body)
+        launches = {n: k.launches for n, k in kernels.items()}
+    finally:
+        srv.shutdown()
+        del tts._vocode
+    lines = {}
+    for path, (status, _, data, secs) in results.items():
+        if status != 200:
+            raise SmokeFailure(f"non-continuous {path} answered {status}: {data[:200]}")
+        if path == "/tts":
+            sr, samples = wavfile.read(io.BytesIO(data))
+        else:  # a stream of unknown length: header, then int16 PCM
+            sr, samples = 24000, np.frombuffer(data[44:], np.int16)
+        if data[:4] != b"RIFF" or sr != 24000 or samples.dtype != np.int16 \
+                or samples.shape[0] == 0 or samples.shape[0] % 1024:
+            raise SmokeFailure(f"non-continuous {path}: {data[:4]} sr {sr} {samples.dtype} "
+                               f"{samples.shape}")
+        lines[path] = {"s": secs, "audio_s": samples.shape[0] / 24000}
+    emit({"phase": "served without --continuous (infer_fast and infer_stream, beam-3)",
+          "requests": lines, "vocoder_calls": vocodes[0], "launches": launches})
+    if launches["K1"] != K1_PER_VOCODE * vocodes[0] or vocodes[0] < 2 or launches["K2"] \
+            or launches["K3"]:
+        raise SmokeFailure(f"non-continuous server: launches {launches} for {vocodes[0]} "
+                           "vocoder calls")
+    return launches["K1"]
+
+
+def end_to_end(torch, engine_mod, httpd, kernels, prompt: str):
+    """Requests at full width: through IndexTTS.infer three sampling
+    requests ("short", "long", "two_sentences"), the reference default (no generation arguments: beam-3
+    sampling), an fp8 KV cache, a guided request and int8 / int4 engines;
+    through infer_fast the reference's serving default (five sentences in
+    buckets of 4 and 1, beam-3) and the same at num_beams=1 sampling; an
+    infer_stream request against two_sentences' wav; and the server without
+    --continuous.  Each path is run with the counts at 0 and read after it.
+    Returns the launches of each kernels-line entry on its paths."""
     root = os.path.join(HERE, "checkpoints_test")
     t0 = time.perf_counter()
     tts = engine_mod.IndexTTS(cfg_path=None, model_dir=root, device="cuda", seed=0)
@@ -1368,17 +1622,43 @@ def end_to_end(torch, engine_mod, kernels, prompt: str):
             raise SmokeFailure(f"{name}: beam decode launched K2 {n['K2']} and K3 {n['K3']} "
                                f"times over {s['decode_steps']} steps")
         totals["fused_anti_alias_activation"] += n["K1"]
+        return s
 
     # PR 1's three sampling requests (bf16 weights and cache)
     single_row("short", tts, "你好，欢迎使用语音合成。", 120, "bf16", 1, do_sample=True,
                seed=100)
     single_row("long", tts, LONG, 120, "bf16", 1, do_sample=True, seed=101)
-    single_row("two_sentences", tts, "The quick brown fox jumps over the lazy dog while the "
-               "morning sun rises slowly above the quiet hills. In the afternoon the children "
-               "come home from school and play in the garden until dinner.", 40, "bf16", 2,
-               do_sample=True, seed=102)
+    single_row("two_sentences", tts, TWO, 40, "bf16", 2, do_sample=True, seed=102)
     # the reference default: no generation arguments (beam-3 sampling)
-    beam("default_beam3", tts, LONG)
+    beam3 = beam("default_beam3", tts, LONG)
+    # infer_fast, the reference's serving default: buckets of 4, beam-3; no K2
+    s, n = run_fast_request(torch, kernels, tts, "fast_default", FIVE, prompt)
+    emit({"rtf": {"fast_default": s["rtf"], "default_beam3": beam3["rtf"]},
+          "audio_s_per_wall_s": {"fast_default": 1 / s["rtf"],
+                                 "default_beam3": 1 / beam3["rtf"]}})
+    if n["K2"]:
+        raise SmokeFailure(f"fast_default: beam buckets launched K2 {n['K2']} times")
+    totals["fused_anti_alias_activation"] += n["K1"]
+    # at num_beams=1: the 4-row bucket on gpt2.decode_step, the singleton on K2
+    s, n = run_fast_request(torch, kernels, tts, "fast_sampling", FIVE, prompt, num_beams=1,
+                            do_sample=True, seed=105)
+    single = sum(st for rows, st in zip(s["buckets"], s["bucket_steps"]) if rows == 1)
+    if n["K2"] != single or single == 0:
+        raise SmokeFailure(f"fast_sampling: K2 launched {n['K2']} times; the single-row "
+                           f"bucket took {single} steps")
+    totals["fused_anti_alias_activation"] += n["K1"]
+    totals["fused_decode_trunk_flat[bf16]"] += n["K2"]
+    # guidance: two physical rows, so no K2
+    s, n = run_request(torch, kernels, tts, "guided", LONG, 120, prompt, num_beams=1,
+                       cfg_scale=3.0, seed=106)
+    if n["K2"] or n["K3"] or len(s["code_lens"]) != 1:
+        raise SmokeFailure(f"guided: launches {n} over {len(s['code_lens'])} sentences")
+    totals["fused_anti_alias_activation"] += n["K1"]
+    n = stream_request(torch, kernels, tts, prompt,
+                       os.path.join(os.path.dirname(prompt), "two_sentences.wav"))
+    totals["fused_anti_alias_activation"] += n["K1"]
+    totals["fused_decode_trunk_flat[bf16]"] += n["K2"]
+    totals["fused_anti_alias_activation"] += served_plain(torch, httpd, kernels, tts, prompt)
     # an explicit fp8 KV cache on the single-row path
     single_row("fp8_kv_cache", tts, LONG, 120, "fp8_cache", 1,
                kv_dtype=torch.float8_e4m3fn, seed=103)
@@ -1418,7 +1698,7 @@ def main(argv=None) -> int:
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.models import gpt2
     from indextts_tpu_torch.models import unified_voice as uv
-    from indextts_tpu_torch.ops import filters, quantization
+    from indextts_tpu_torch.ops import filters, quantization, sampling
     from indextts_tpu_torch.ops.cuda import _build, anti_alias, decode_layer, permute, pool_trunk
     from indextts_tpu_torch.ops.cuda.anti_alias import fused_anti_alias_activation as k1
     from indextts_tpu_torch.serve import httpd
@@ -1453,11 +1733,12 @@ def main(argv=None) -> int:
                *kernel_checks_pool(torch, gpt2, pool_trunk, quantization)]
 
     vocode_profile(torch, "flagship bf16 vocode")
+    sampling_shortlist_timing(torch, sampling)
     small_agreement(torch, engine_mod, prompt)
     pool_small_agreement(torch, engine_mod, pool_trunk, prompt)
     kernels = {"K1": k1, "K2": decode_layer.fused_decode_trunk_flat,
                "K3": permute.permute_cache_rows, "K4": pool_trunk.fused_pool_step}
-    launches = end_to_end(torch, engine_mod, kernels, prompt)
+    launches = end_to_end(torch, engine_mod, httpd, kernels, prompt)
     # the beam-reorder path: counts at 0 just before it, read just after
     tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
                               device="cuda", seed=0)

@@ -23,14 +23,17 @@ def main(argv=None) -> int:
     p.add_argument("--fp16", action="store_true", default=True)
     p.add_argument("--no-fp16", dest="fp16", action="store_false")
     p.add_argument("-f", "--force", action="store_true", help="overwrite output")
+    p.add_argument("--fast", action="store_true", help="use infer_fast")
+    p.add_argument("--stream", action="store_true",
+                   help="sentence-streaming synthesis: the output is rewritten after each "
+                        "chunk; prints the time to first audio")
     p.add_argument("--speaker_id", default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--num_beams", type=int, default=None,
                    help="beams of the decode (default 3, the reference's; 1 samples "
                         "one row)")
     p.add_argument("--cfg_scale", type=float, default=None,
-                   help="classifier-free guidance scale (1.0 = off; other values: "
-                        "ROADMAP A11)")
+                   help="classifier-free guidance scale (sampling mode; 1.0 = off)")
     args = p.parse_args(argv)
 
     if os.path.exists(args.output_path) and not args.force:
@@ -50,7 +53,27 @@ def main(argv=None) -> int:
         gen["num_beams"] = args.num_beams
     if args.cfg_scale is not None:
         gen["cfg_scale"] = args.cfg_scale
-    tts.infer(args.voice, args.text, args.output_path, speaker_id=args.speaker_id, **gen)
+    if args.stream:
+        import numpy as np
+
+        from indextts_tpu_torch.utils.audio import write_wav
+
+        chunks, sr = [], 24000
+        stats = {}
+        for sr, chunk in tts.infer_stream(args.voice, args.text, verbose=True,
+                                          speaker_id=args.speaker_id, stats_out=stats, **gen):
+            chunks.append(chunk)
+            # progressive output: a player tailing the file hears audio
+            # before the synthesis ends
+            write_wav(args.output_path, np.concatenate(chunks), sr)
+        if not chunks:
+            print("error: no audio produced (empty text?)", file=sys.stderr)
+            return 1
+        ttfa = stats.get("time_to_first_audio")
+        print(f">> saved: {args.output_path} (TTFA {-1.0 if ttfa is None else ttfa:.2f}s)")
+        return 0
+    infer = tts.infer_fast if args.fast else tts.infer
+    infer(args.voice, args.text, args.output_path, speaker_id=args.speaker_id, **gen)
     return 0
 
 

@@ -4,10 +4,14 @@ indextts_tpu/engine.py).
 Single-utterance synthesis, sentence by sentence (reference infer.py:
 779-917): prompt mel -> conditioning latents -> beam or sampling decode of
 mel codes -> long-silence compression -> teacher-forced latent re-forward ->
-BigVGAN with ECAPA speaker conditioning -> int16 PCM.  Pool serving
-(`create_batcher`, `pool_infer`, `pool_infer_stream`) decodes sentences of
-many requests in one continuous-batching pool (serve/scheduler.py), and an
-optional coordinator vocodes sentences that finish together as one batch.  The GPT weights may
+BigVGAN with ECAPA speaker conditioning -> int16 PCM.  `infer` is a drained
+`infer_stream` (one chunk per sentence); `infer_fast` decodes length buckets
+of sentences as batched rows (reference infer.py:595-777), one vocoder call
+per bucket.  One engine lock serialises the syntheses' device phases.  Pool
+serving (`create_batcher`, `pool_infer`, `pool_infer_stream`) decodes
+sentences of many requests in one continuous-batching pool
+(serve/scheduler.py), and an optional coordinator vocodes sentences that
+finish together as one batch.  The GPT weights may
 be quantized to int8 or int4 with an fp8 KV cache (precision keys as in the
 JAX engine).  Runs on `cuda` unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU it raises.
@@ -15,11 +19,14 @@ no GPU and no explicit CPU it raises.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import os
+import queue as queue_mod
 import threading
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +89,43 @@ def remove_long_silence(codes: np.ndarray, code_lens: np.ndarray,
     for i, c in enumerate(out_list):
         out[i, : len(c)] = c
     return out, new_lens
+
+
+def bucket_sentences(sentences: Sequence[Sequence[str]],
+                     bucket_max_size: int = 4) -> List[List[Dict[str, Any]]]:
+    """Length bucketing for batched decode (infer.py:499-550)."""
+    outputs = [{"idx": i, "sent": s, "len": len(s)} for i, s in enumerate(sentences)]
+    if len(outputs) <= bucket_max_size:
+        return [outputs] if outputs else []
+    buckets: List[List[Dict[str, Any]]] = []
+    factor = 1.5
+    last_bucket: Optional[List[Dict[str, Any]]] = None
+    last_median = 0
+    for sent in sorted(outputs, key=lambda x: x["len"]):
+        if sent["len"] == 0:
+            continue
+        if (last_bucket is None or sent["len"] >= int(last_median * factor)
+                or len(last_bucket) >= bucket_max_size):
+            buckets.append([sent])
+            last_bucket = buckets[-1]
+            last_median = sent["len"]
+        else:
+            last_bucket.append(sent)
+            last_median = last_bucket[len(last_bucket) // 2]["len"]
+    # merge singleton buckets into under-filled ones (infer.py:532-549)
+    out_buckets = [b for b in buckets if len(b) > 1]
+    only_ones = [b[0] for b in buckets if len(b) == 1]
+    if only_ones:
+        for b in out_buckets:
+            if len(b) < bucket_max_size:
+                b.append(only_ones.pop(0))
+                if not only_ones:
+                    break
+        if only_ones:
+            out_buckets.extend(
+                only_ones[i : i + bucket_max_size]
+                for i in range(0, len(only_ones), bucket_max_size))
+    return out_buckets
 
 
 class _VocodeJob:
@@ -289,6 +333,12 @@ class IndexTTS:
         self.cache_audio_prompt: Optional[str] = None
         self.cache_cond_mel: Optional[torch.Tensor] = None
         self._prompt_cache_lock = threading.Lock()   # pool requests come from many threads
+        # one device, one synthesis at a time: infer, infer_stream and
+        # infer_fast take it around their device phases (pool serving does
+        # not).  A plain Lock, not an RLock: a stream's next() and close()
+        # may come from other threads than the one that started it, and
+        # Lock.release() is thread-agnostic.
+        self._infer_lock = threading.Lock()
         self._vocode_coord: Optional[_VocodeCoordinator] = None
         mel = self.cfg.dataset.mel
         self._mel_extractor = MelSpectrogramFeatures(
@@ -356,9 +406,18 @@ class IndexTTS:
         return (torch.as_tensor(tokens, device=self.device),
                 torch.as_tensor(mask, device=self.device))
 
+    def _device_scope(self):
+        """The engine's CUDA device as the current one: a worker thread
+        starts on device 0."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def _decode_bucket(self, cond_latent, token_lists, generator,
                        generation: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray, int]:
-        """Decode one sentence."""
+        """Batched decode of one bucket of sentences, text left-padded to a
+        multiple of 16.  Returns (codes [B, max_new], lengths [B], decode
+        steps)."""
         tokens_t, mask_t = self._text_inputs(token_lists)
         # reference decode default: num_beams=3 (infer.py:633); a cfg_scale
         # without an explicit num_beams switches to sampling
@@ -389,10 +448,13 @@ class IndexTTS:
                 generator, num_beams=num_beams,
                 length_penalty=float(generation.get("length_penalty", 0.0)), **kwargs)
         else:
-            # the decode-trunk kernel unless the caller opts out; it keeps the
-            # cache in the compute type unless kv_dtype is asked for, as the
-            # JAX engine does for its fused trunk
-            use_fused = bool(generation.get("use_fused_trunk", True))
+            # the decode-trunk kernel (K2) takes one unguided row: one
+            # sentence at cfg_scale 1, unless the caller opts out.  It keeps
+            # the cache in the compute type unless kv_dtype is asked for, as
+            # the JAX engine does for its fused trunk; guided and batched
+            # rows keep the engine's KV tier
+            use_fused = bool(generation.get("use_fused_trunk",
+                                            len(token_lists) == 1 and cfg_scale == 1.0))
             if use_fused and generation.get("kv_dtype") is None:
                 kwargs["kv_dtype"] = None
             result = uv.inference_speech(
@@ -536,81 +598,291 @@ class IndexTTS:
 
     # -- public API -------------------------------------------------------
 
-    def infer(self, audio_prompt: str, text: str, output_path: Optional[str],
-              verbose: bool = False, max_text_tokens_per_sentence: int = 120,
-              speaker_id: Optional[str] = None, seed: Optional[int] = None,
-              **generation_kwargs):
-        """Per-sentence synthesis (reference: infer.py:779-917).  Sentence i
-        samples from a generator seeded with mix_seed(seed, i)."""
+    def _check_request(self, audio_prompt: Optional[str], speaker_id: Optional[str]) -> None:
         if speaker_id is not None:
             raise NotImplementedError("speaker_id needs checkpoint speaker data "
                                       "(ROADMAP item A1b)")
         if not audio_prompt:
             raise ValueError("an audio prompt is required")
+
+    def _generation_cap(self, gen: Dict[str, Any]) -> int:
+        """The effective max_mel_tokens: the mel position table caps it."""
+        requested_cap = int(gen.get("max_mel_tokens", 600))
+        if requested_cap > self.cfg.gpt.max_mel_tokens:
+            warnings.warn(f"max_mel_tokens={requested_cap} exceeds the model's position "
+                          f"table ({self.cfg.gpt.max_mel_tokens}); generation is capped "
+                          "there", RuntimeWarning)
+        return min(requested_cap, self.cfg.gpt.max_mel_tokens)
+
+    def _emit(self, wav: np.ndarray, output_path: Optional[str], sr: int):
+        if output_path:
+            audio_io.write_wav(output_path, wav, sr)
+            print(f">> saved: {output_path}")
+            return output_path
+        return sr, wav.astype(np.int16)[None, :].T
+
+    def infer(self, audio_prompt: str, text: str, output_path: Optional[str],
+              verbose: bool = False, max_text_tokens_per_sentence: int = 120,
+              speaker_id: Optional[str] = None, seed: Optional[int] = None,
+              **generation_kwargs):
+        """Per-sentence synthesis (reference: infer.py:779-917): a drained
+        `infer_stream`.  Sentence i samples from a generator seeded with
+        mix_seed(seed, i)."""
+        stats: Dict[str, Any] = {}
+        chunks = list(self.infer_stream(
+            audio_prompt, text, verbose=verbose,
+            max_text_tokens_per_sentence=max_text_tokens_per_sentence,
+            speaker_id=speaker_id, seed=seed, stats_out=stats, **generation_kwargs))
+        sampling_rate = chunks[0][0] if chunks else self.cfg.dataset.sample_rate
+        wav = np.concatenate([c for _, c in chunks]) if chunks else np.zeros(1, np.int16)
+        # this run's stats, not self.last_stats, which a concurrent call may
+        # have written since
+        print(f">> total {stats['total_s']:.2f}s  (RTF: {stats['rtf']:.4f})")
+        print(f"   gpt_gen {stats['gpt_gen_time']:.2f}s  "
+              f"gpt_fwd {stats['gpt_forward_time']:.2f}s  "
+              f"vocoder {stats['bigvgan_time']:.2f}s")
+        return self._emit(wav, output_path, sampling_rate)
+
+    def infer_stream(self, audio_prompt: str, text: str, verbose: bool = False,
+                     max_text_tokens_per_sentence: int = 120,
+                     speaker_id: Optional[str] = None, seed: Optional[int] = None,
+                     stats_out: Optional[Dict[str, Any]] = None, stream_ahead: int = 8,
+                     **generation_kwargs):
+        """Streaming synthesis: returns a generator of (sample_rate, int16
+        chunk), one chunk per sentence, which concatenate to `infer`'s wav.
+        The prompt is analysed here, under the engine lock, so a bad prompt
+        raises before any chunk.  A worker decodes sentence i+1 while
+        sentence i is re-forwarded and vocoded; each takes the lock around
+        its device work only, never across the hand-off of a chunk, so a
+        stalled consumer does not block other syntheses (at most
+        `stream_ahead` chunks wait in the queue).  Stats go to `stats_out`
+        and `last_stats`, with `time_to_first_audio`."""
+        self._check_request(audio_prompt, speaker_id)
+        with self._infer_lock:
+            cond_mel = self._prompt_mel(audio_prompt)
+            cond_latent = self._conditioning(cond_mel)
+            mel_ref = self._mel_ref(cond_mel, speaker_id)
+        sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
+                                                   max_text_tokens_per_sentence)
+        base_seed = self._rng_seed if seed is None else seed
+        return self._stream_chunks(sentences, cond_latent, mel_ref, base_seed,
+                                   dict(generation_kwargs), verbose, stats_out, stream_ahead)
+
+    def _stream_chunks(self, sentences, cond_latent, mel_ref, base_seed: int,
+                       gen: Dict[str, Any], verbose: bool,
+                       stats_out: Optional[Dict[str, Any]], stream_ahead: int):
+        start_time = time.perf_counter()
+        sampling_rate = self.cfg.dataset.sample_rate
+        phase = {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0, "bigvgan_time": 0.0}
+        effective_cap = self._generation_cap(gen)
+
+        def decode_sentence(si, sent):
+            ids = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int32)
+            # the worker takes the lock itself: the producer does not hold it
+            # while it waits for this decode
+            with self._device_scope(), self._infer_lock:
+                t0 = time.perf_counter()
+                generator = torch.Generator(device=self.device).manual_seed(
+                    mix_seed(base_seed, si))
+                codes, lens, steps = self._decode_bucket(cond_latent, [ids], generator, gen)
+                codes, lens = remove_long_silence(codes, lens, stop_token=self.stop_mel_token)
+                phase["gpt_gen_time"] += time.perf_counter() - t0
+            return ids, codes, lens, steps
+
+        out_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=max(1, stream_ahead))
+        stop = threading.Event()
+        done = object()
+
+        def hand_off(item) -> bool:
+            """A blocking put that gives up once the consumer is gone."""
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def produce():
+            first_chunk_time = None
+            decode_steps = 0
+            code_lens: List[int] = []
+            sentence_codes: List[np.ndarray] = []
+            total_samples = 0
+            has_warned = False
+            try:
+                with self._device_scope(), \
+                        concurrent.futures.ThreadPoolExecutor(1) as pool:
+                    fut = pool.submit(decode_sentence, 0, sentences[0]) if sentences else None
+                    for si in range(len(sentences)):
+                        if stop.is_set():
+                            return
+                        ids, codes, lens, steps = fut.result()
+                        if si + 1 < len(sentences):
+                            fut = pool.submit(decode_sentence, si + 1, sentences[si + 1])
+                        code_len = int(lens[0])
+                        if not has_warned and code_len >= effective_cap:
+                            warnings.warn("generation reached max_mel_tokens; consider "
+                                          "shorter sentences", RuntimeWarning)
+                            has_warned = True
+                        decode_steps += steps
+                        code_lens.append(code_len)
+                        sentence_codes.append(codes[0, :code_len])
+                        with self._infer_lock:
+                            t0 = time.perf_counter()
+                            latent = self._latents(cond_latent, ids, len(ids), codes[0],
+                                                   code_len)
+                            if self.device.type == "cuda":  # the re-forward, not its enqueue
+                                torch.cuda.synchronize(self.device)
+                            phase["gpt_forward_time"] += time.perf_counter() - t0
+                            t0 = time.perf_counter()
+                            wav = self._vocode(latent[None], mel_ref)
+                            n_samples = code_len * self.cfg.gpt.mel_length_compression
+                            chunk = wav[0, 0, :n_samples].cpu().numpy()
+                            phase["bigvgan_time"] += time.perf_counter() - t0
+                        if first_chunk_time is None:
+                            first_chunk_time = time.perf_counter() - start_time
+                        total_samples += len(chunk)
+                        if not hand_off((sampling_rate, chunk)):
+                            return
+                total = time.perf_counter() - start_time
+                wav_seconds = total_samples / sampling_rate
+                stats = {"rtf": total / max(wav_seconds, 1e-9), "total_s": total,
+                         "time_to_first_audio": first_chunk_time, "wav_seconds": wav_seconds,
+                         "decode_steps": decode_steps, "code_lens": code_lens,
+                         "codes": sentence_codes, **phase}
+                with self._infer_lock:   # no other synthesis writes between
+                    if stats_out is not None:
+                        stats_out.update(stats)
+                    self.last_stats = stats
+                if verbose:
+                    ttfa = -1.0 if first_chunk_time is None else first_chunk_time
+                    print(f">> {len(sentences)} sentences, {decode_steps} decode steps; "
+                          f"stream total {total:.2f}s  TTFA {ttfa:.2f}s "
+                          f"(RTF {stats['rtf']:.4f})")
+            except BaseException as e:  # noqa: BLE001 — raised in the consumer
+                hand_off(e)
+            finally:
+                hand_off(done)
+
+        threading.Thread(target=produce, daemon=True, name="infer-stream").start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # the consumer is gone (close, exception, end): release the
+            # producer, which checks `stop` between sentences and in hand_off
+            stop.set()
+            while True:
+                try:
+                    out_q.get_nowait()
+                except queue_mod.Empty:
+                    break
+
+    def infer_fast(self, audio_prompt: str, text: str, output_path: Optional[str],
+                   verbose: bool = False, max_text_tokens_per_sentence: int = 100,
+                   sentences_bucket_max_size: int = 4, speaker_id: Optional[str] = None,
+                   seed: Optional[int] = None, **generation_kwargs):
+        """Batched long-text synthesis (reference: infer.py:595-777): the
+        sentences are bucketed by length (`bucket_sentences`) and each bucket
+        decodes as one batch of rows; bucket i samples from a generator
+        seeded with mix_seed(seed, i).  Holds the engine lock throughout."""
+        self._check_request(audio_prompt, speaker_id)
+        with self._infer_lock:
+            return self._infer_fast_locked(audio_prompt, text, output_path, verbose,
+                                           max_text_tokens_per_sentence,
+                                           sentences_bucket_max_size, seed,
+                                           dict(generation_kwargs))
+
+    def _infer_fast_locked(self, audio_prompt, text, output_path, verbose,
+                           max_text_tokens_per_sentence, sentences_bucket_max_size, seed,
+                           gen: Dict[str, Any]):
         start_time = time.perf_counter()
         cond_mel = self._prompt_mel(audio_prompt)
         cond_latent = self._conditioning(cond_mel)
         mel_ref = cond_mel.transpose(1, 2)                  # vocoder's [1, T, n_mels]
         sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
                                                    max_text_tokens_per_sentence)
-        gen = dict(generation_kwargs)
-        base_seed = self._rng_seed if seed is None else seed
-        requested_cap = int(gen.get("max_mel_tokens", 600))
-        effective_cap = min(requested_cap, self.cfg.gpt.max_mel_tokens)
-        if requested_cap > self.cfg.gpt.max_mel_tokens:
-            warnings.warn(f"max_mel_tokens={requested_cap} exceeds the model's position "
-                          f"table ({self.cfg.gpt.max_mel_tokens}); generation is capped "
-                          "there", RuntimeWarning)
-        phase = {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0, "bigvgan_time": 0.0}
-        chunks: List[np.ndarray] = []
-        decode_steps = 0
-        code_lens: List[int] = []
-        sentence_codes: List[np.ndarray] = []
-        has_warned = False
-        for si, sent in enumerate(sentences):
-            ids = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int32)
-            t0 = time.perf_counter()
-            generator = torch.Generator(device=self.device).manual_seed(
-                mix_seed(base_seed, si))
-            codes, lens, steps = self._decode_bucket(cond_latent, [ids], generator, gen)
-            codes, lens = remove_long_silence(codes, lens, stop_token=self.stop_mel_token)
-            phase["gpt_gen_time"] += time.perf_counter() - t0
-            decode_steps += steps
-            if not has_warned and int(lens[0]) >= effective_cap:
-                warnings.warn("generation reached max_mel_tokens; consider shorter "
-                              "sentences", RuntimeWarning)
-                has_warned = True
-            code_len = int(lens[0])
-            code_lens.append(code_len)
-            sentence_codes.append(codes[0, :code_len])
-            t0 = time.perf_counter()
-            latent = self._latents(cond_latent, ids, len(ids), codes[0], code_len)
-            if self.device.type == "cuda":  # time the re-forward, not its enqueue
-                torch.cuda.synchronize(self.device)
-            phase["gpt_forward_time"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            wav = self._vocode(latent[None], mel_ref)
-            n_samples = code_len * self.cfg.gpt.mel_length_compression
-            chunks.append(wav[0, 0, :n_samples].cpu().numpy())
-            phase["bigvgan_time"] += time.perf_counter() - t0
         sampling_rate = self.cfg.dataset.sample_rate
-        wav = np.concatenate(chunks) if chunks else np.zeros(1, np.int16)
+        buckets = bucket_sentences(sentences, sentences_bucket_max_size)
+        base_seed = self._rng_seed if seed is None else seed
+        effective_cap = self._generation_cap(gen)
+        has_warned = False
+
+        def decode_bucket(bi, bucket):
+            id_lists = [np.asarray(self.tokenizer.convert_tokens_to_ids(item["sent"]), np.int32)
+                        for item in bucket]
+            with self._device_scope():
+                generator = torch.Generator(device=self.device).manual_seed(
+                    mix_seed(base_seed, bi))
+                codes, lens, steps = self._decode_bucket(cond_latent, id_lists, generator, gen)
+            codes, lens = remove_long_silence(codes, lens, stop_token=self.stop_mel_token)
+            return id_lists, codes, lens, steps
+
+        # one-deep pipeline: bucket i+1 decodes on a worker while bucket i's
+        # re-forward and vocoder are enqueued here (both threads on the
+        # default stream, so the device work stays in order); nothing is
+        # fetched until every bucket is queued
+        gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
+        bucket_wavs = []
+        bucket_steps: List[int] = []
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(decode_bucket, 0, buckets[0]) if buckets else None
+            for bi, bucket in enumerate(buckets):
+                t0 = time.perf_counter()
+                id_lists, codes, lens, steps = fut.result()
+                gpt_gen_time += time.perf_counter() - t0
+                if bi + 1 < len(buckets):
+                    fut = pool.submit(decode_bucket, bi + 1, buckets[bi + 1])
+                if not has_warned and (lens >= effective_cap).any():
+                    warnings.warn("generation reached max_mel_tokens", RuntimeWarning)
+                    has_warned = True
+                bucket_steps.append(steps)
+                t0 = time.perf_counter()
+                latents = self._latents_batch_dev(cond_latent, id_lists, codes, lens)
+                gpt_forward_time += time.perf_counter() - t0   # enqueue time
+                t0 = time.perf_counter()
+                wav = self._vocode(latents, mel_ref)
+                bucket_wavs.append((bucket, wav, codes, lens))
+                bigvgan_time += time.perf_counter() - t0       # enqueue time
+
+        # one fetch of every bucket's wav, the only wait on the device; then
+        # each row is trimmed to code_len * 1024 samples, in sentence order
+        t0 = time.perf_counter()
+        fetched = [w.cpu().numpy() for _, w, _, _ in bucket_wavs]
+        fetch_time = time.perf_counter() - t0
+        parts: Dict[int, Tuple[np.ndarray, int, np.ndarray]] = {}
+        for (bucket, _, codes, lens), wav_host in zip(bucket_wavs, fetched):
+            for i, item in enumerate(bucket):
+                n = int(lens[i])
+                parts[item["idx"]] = (wav_host[i, 0][: n * self.cfg.gpt.mel_length_compression],
+                                      n, codes[i, :n])
+        order = sorted(parts)
+        wav = (np.concatenate([parts[i][0] for i in order]) if parts
+               else np.zeros(1, np.int16))
         total = time.perf_counter() - start_time
-        wav_seconds = sum(len(c) for c in chunks) / sampling_rate
-        self.last_stats = {"rtf": total / max(wav_seconds, 1e-9), "total_s": total,
-                           "wav_seconds": wav_seconds, "decode_steps": decode_steps,
-                           "code_lens": code_lens, "codes": sentence_codes, **phase}
-        s = self.last_stats
+        wav_seconds = len(wav) / sampling_rate
+        rtf = total / max(wav_seconds, 1e-9)
+        print(f">> total {total:.2f}s  (RTF: {rtf:.4f})")
+        print(f"   gpt_gen {gpt_gen_time:.2f}s  "
+              f"gpt_fwd+vocoder enqueue {gpt_forward_time + bigvgan_time:.2f}s  "
+              f"deferred fetch {fetch_time:.2f}s")
         if verbose:
-            print(f">> {len(sentences)} sentences, {decode_steps} decode steps")
-        print(f">> total {s['total_s']:.2f}s  (RTF: {s['rtf']:.4f})")
-        print(f"   gpt_gen {s['gpt_gen_time']:.2f}s  gpt_fwd {s['gpt_forward_time']:.2f}s  "
-              f"vocoder {s['bigvgan_time']:.2f}s")
-        if output_path:
-            audio_io.write_wav(output_path, wav, sampling_rate)
-            print(f">> saved: {output_path}")
-            return output_path
-        return sampling_rate, wav.astype(np.int16)[None, :].T
+            print(f">> {len(sentences)} sentences in {len(buckets)} buckets, "
+                  f"{sum(bucket_steps)} decode steps")
+        self.last_stats = {
+            "rtf": rtf, "total_s": total, "wav_seconds": wav_seconds,
+            "gpt_gen_time": gpt_gen_time, "gpt_forward_time": gpt_forward_time,
+            "bigvgan_time": bigvgan_time, "fetch_time": fetch_time,
+            "decode_steps": sum(bucket_steps), "bucket_steps": bucket_steps,
+            "buckets": [len(b) for b in buckets],
+            "code_lens": [parts[i][1] for i in order], "codes": [parts[i][2] for i in order]}
+        return self._emit(wav, output_path, sampling_rate)
 
     def _pool_sentences(self, audio_prompt, text, speaker_id, max_text_tokens_per_sentence):
         """Conditioning, vocoder mel and sentence token ids of a pool request."""

@@ -3,7 +3,8 @@
 
 A GPT-2 trunk with learned per-stream position embeddings, a conformer ->
 perceiver conditioning encoder producing 32 latents, and a mel head.  The
-single-row decode runs the trunk through ops/cuda/decode_layer.py (K2), and
+single-row unguided decode runs the trunk through ops/cuda/decode_layer.py
+(K2); batched and guided rows step through gpt2.decode_step, and
 beam decode under reorder="pallas" reorders its cache through
 ops/cuda/permute.py (K3): the hand-written kernels for CUDA tensors, their
 plain versions on the CPU.  Trunk and head matrices may be quantized
@@ -210,26 +211,45 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
                      typical_sampling: bool = False, typical_mass: float = 0.9,
                      cache_dtype=None, use_fused_trunk: bool = True, kv_dtype=None,
                      cfg_scale: float = 1.0) -> DecodeResult:
-    """Autoregressive mel-code generation for one row (replaces HF generate,
+    """Autoregressive mel-code generation (replaces HF generate,
     gpt/model.py:669-720): prefill of [cond | text | start_mel], then one
     trunk step per token until every row stopped or `max_new` codes exist.
-    text_tokens/text_mask [1, L+2] from prepare_text_prompt.
+    text_tokens/text_mask [B, L+2] from prepare_text_prompt, left-padded;
+    cond_latent [1 or B, 32, D].
 
-    use_fused_trunk: each step through the decode-trunk kernel (K2) over a
-    flat cache, which takes plain, int8 and fused-int4 weights; otherwise
-    through gpt2.decode_step over the 5-D cache (any weight form, the
-    shared int4 layout included).  kv_dtype: the cache's storage type
-    (default cache_dtype), e.g. torch.float8_e4m3fn."""
-    if float(cfg_scale) != 1.0:
-        raise NotImplementedError("classifier-free guidance (cfg_scale != 1) is "
-                                  "ROADMAP item A11")
-    B, Ltot = text_tokens.shape
-    if B != 1 or cond_latent.shape[0] != 1:
-        raise NotImplementedError("batched decode (more than one row) is ROADMAP item A11")
+    cfg_scale != 1: classifier-free guidance.  Rows [B, 2B) decode the same
+    text with zeroed conditioning latents (the trained null), each step
+    samples from `uncond + cfg_scale * (cond - uncond)`, and both halves
+    take the sampled token.
+
+    use_fused_trunk: when the trunk has one physical row (B = 1, unguided),
+    each step runs the decode-trunk kernel (K2) over a flat cache, which
+    takes plain, int8 and fused-int4 weights.  Otherwise, as in the JAX
+    package, each step is gpt2.decode_step over the 5-D cache (any weight
+    form, the shared int4 layout included).  kv_dtype: the cache's storage
+    type (default cache_dtype), e.g. torch.float8_e4m3fn."""
     params = quantization.nativize_int4(params)
     size = trunk_size(cfg)
     dev = cond_latent.device
     cache_dtype = cache_dtype or params["gpt"]["ln_f"]["scale"].dtype
+    B = text_tokens.shape[0]
+    if cond_latent.shape[0] == 1 and B > 1:
+        cond_latent = cond_latent.expand(B, -1, -1)
+    guided = float(cfg_scale) != 1.0
+    R = 2 * B if guided else B                 # physical trunk rows
+    if guided:
+        cond_latent = torch.cat([cond_latent, torch.zeros_like(cond_latent)])
+        text_tokens = text_tokens.repeat(2, 1)
+        text_mask = text_mask.repeat(2, 1)
+
+    def mix(logits):
+        """[R, V] per-row logits -> [B, V] guided logits."""
+        if not guided:
+            return logits
+        lc, lu = logits[:B], logits[B:]
+        # the difference in the head's type, the mix in fp32, as in JAX
+        # (cfg_scale there is an fp32 scalar)
+        return lu.float() + float(cfg_scale) * (lc - lu).float()
 
     prefill_emb, prefill_mask = _prefill_inputs(params, cfg, cond_latent, text_tokens,
                                                 text_mask)
@@ -237,9 +257,9 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     cache_len = -(-(P + max_new) // 8) * 8
     hidden, cache = gpt2.prefill(params["gpt"], prefill_emb.to(cache_dtype), prefill_mask,
                                  size, cache_len, kv_dtype=kv_dtype)
-    logits = _lm_head(params, hidden[:, -1])
+    logits = mix(_lm_head(params, hidden[:, -1]))
 
-    full_mask = torch.zeros(B, cache_len, dtype=torch.int32, device=dev)
+    full_mask = torch.zeros(R, cache_len, dtype=torch.int32, device=dev)
     full_mask[:, :P] = prefill_mask
     presence = sampling.init_penalty_presence(cfg.number_mel_codes, B, prompt_token_ids=(1,),
                                               start_token=cfg.start_mel_token, device=dev)
@@ -252,7 +272,8 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     codes = torch.full((B, max_new), cfg.stop_mel_token, dtype=torch.int32, device=dev)
     codes[:, 0] = tok
 
-    if use_fused_trunk:
+    fused = use_fused_trunk and R == 1
+    if fused:
         k_flat, v_flat = flatten_cache(cache)
         del cache
     ln_f = params["gpt"]["ln_f"]
@@ -260,11 +281,12 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     while step < max_new and not bool(finished.all()):
         # token generated at step-1 sits at mel position step+1
         mel_pos = min(step + 1, cfg.max_mel_seq_len - 1)
-        emb = (params["mel_embedding"]["weight"][tok.long()]
+        rows = tok.repeat(2) if guided else tok   # both halves follow one sequence
+        emb = (params["mel_embedding"]["weight"][rows.long()]
                + params["mel_pos_embedding"]["weight"][mel_pos])[:, None, :]
         slot = P + step - 1
         full_mask[:, slot] = 1
-        if use_fused_trunk:
+        if fused:
             pre, k_flat, v_flat = fused_decode_trunk_flat(
                 params["gpt"], emb.to(cache_dtype), k_flat, v_flat, slot, full_mask,
                 cfg.heads)
@@ -272,7 +294,7 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
         else:
             hidden, cache = gpt2.decode_step(params["gpt"], emb.to(cache_dtype), cache, slot,
                                              full_mask, size)
-        logits = _lm_head(params, hidden[:, 0])
+        logits = mix(_lm_head(params, hidden[:, 0]))
         tok, presence, finished = sampling.sample_step(logits, presence, finished, **samp)
         codes[:, step] = tok
         step += 1

@@ -24,6 +24,7 @@ import torch
 
 from indextts_tpu_torch.ops import sampling
 from indextts_tpu_torch.ops.sampling import NEG_INF as FILTER_NEG
+from indextts_tpu_torch.ops.sampling import _top_k
 
 # Beam-score sentinel: HF's -1e9 for dead beams at init and for stop
 # candidates in the continuing ranking.  Token filtering uses the lower
@@ -36,13 +37,6 @@ NEG_INF = -1e9
 BANK_EMPTY = float("-inf")
 
 Scalar = Union[float, torch.Tensor]
-
-
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the k largest along the last axis, descending,
-    the lower index first among equals (`jax.lax.top_k`'s order)."""
-    values, order = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], order[..., :k]
 
 
 def _col(v: Scalar, like: torch.Tensor) -> Scalar:

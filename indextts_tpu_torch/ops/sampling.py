@@ -72,6 +72,14 @@ def apply_typical_filter(logits: torch.Tensor, mass: float = 0.9,
     return torch.where(shifted > threshold, NEG_INF, logits)
 
 
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, descending,
+    the lower index first among equals (`jax.lax.top_k`'s order; `torch.topk`
+    promises no order among ties, which bf16 logits have often)."""
+    values, order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], order[..., :k]
+
+
 def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Standard Gumbel draws -log(-log(U)), U uniform in (0, 1)."""
     tiny = torch.finfo(torch.float32).tiny
@@ -91,7 +99,7 @@ def sample_token(logits: torch.Tensor, *, temperature: float = 1.0, top_k: int =
     logits = logits / temperature
     V = logits.shape[-1]
     k = top_k if 0 < top_k < V else V  # top_k <= 0 disables the k-filter
-    shortlist, idx = torch.topk(logits, k, dim=-1)  # descending
+    shortlist, idx = _top_k(logits, k)
     shortlist = torch.where(_top_p_mask(shortlist, top_p), shortlist, NEG_INF)
     if gumbel is None:
         gumbel = gumbel_noise(shortlist.shape, generator, shortlist.device)
@@ -190,8 +198,6 @@ def sample_step_rows(logits: torch.Tensor, presence: torch.Tensor, finished: tor
     (do_sample=0) take the shortlist's top-1, ties to the lower index as
     `jax.lax.top_k` breaks them.  Returns (token [B] int32, presence',
     finished'); `presence` is updated in place."""
-    from indextts_tpu_torch.ops.beam import _top_k  # beam imports this module
-
     temperature, top_p, rep_pen = samp[:, 0], samp[:, 2], samp[:, 3]
     top_k = samp[:, 1].to(torch.int64)
     do_sample = samp[:, 4] > 0.5

@@ -18,10 +18,12 @@ browser form's `audio_file`) land in a temp file and are passed to the
 service as `audio_path` (the reference's contract, api.py:199-216).
 GET /ui serves the static browser player.
 
+Without --continuous, /tts with mode "fast" (the default) runs
+`infer_fast` (sentence buckets of `sentences_bucket_max_size`, default 4),
+mode "normal" or a speaker_id `infer`, and /tts_stream `infer_stream`.
 Paths not ported yet raise NotImplementedError naming their ROADMAP item,
-which the handler answers with a 500: non-continuous mode="fast"
-(`infer_fast`, A11), non-continuous /tts_stream (`infer_stream`, A11), and
-num_beams=3 in continuous mode (the beam pool, A12b).
+which the handler answers with a 500: num_beams=3 in continuous mode (the
+beam pool, A12b) and checkpoint loading (A1b).
 """
 
 from __future__ import annotations
@@ -297,7 +299,11 @@ class TTSService:
             mode = req.get("mode") or req.get("infer_mode") or "fast"
             mtps = int(req.get("max_text_tokens_per_sentence", 120))
             if mode == "fast" and not speaker_id:
-                raise NotImplementedError("mode='fast' needs infer_fast (ROADMAP item A11)")
+                eng.infer_fast(prompt, text, out.name, seed=used_seed,
+                               max_text_tokens_per_sentence=mtps,
+                               sentences_bucket_max_size=int(
+                                   req.get("sentences_bucket_max_size", 4)),
+                               **gen)
             else:
                 eng.infer(prompt, text, out.name, speaker_id=speaker_id,
                           seed=used_seed,
@@ -328,8 +334,9 @@ class TTSService:
                 pool, prompt, req["text"], speaker_id=speaker_id,
                 max_text_tokens_per_sentence=mtps, seed=used_seed,
                 sampling=sampling, max_mel_tokens=max_mel), headers
-        raise NotImplementedError("/tts_stream without --continuous needs infer_stream "
-                                  "(ROADMAP item A11)")
+        return used_seed, self.engine().infer_stream(
+            prompt, req["text"], speaker_id=speaker_id, seed=used_seed,
+            max_text_tokens_per_sentence=mtps, **gen), {}
 
     def _pool_tts(self, req: Dict[str, Any], prompt, speaker_id,
                   used_seed: int, gen: Dict[str, Any]):

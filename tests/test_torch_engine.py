@@ -167,10 +167,30 @@ def test_default_infer_returns_a_wav(engines):
 def test_unported_options_raise(engines):
     _, teng, d = engines
     prompt = str(d / "prompt.wav")
-    with pytest.raises(NotImplementedError, match="A11"):
-        teng.infer(prompt, "你好。", None, num_beams=1, cfg_scale=2.0)
     with pytest.raises(NotImplementedError, match="A1b"):
         teng.infer(prompt, "你好。", None, speaker_id="someone")
+    with pytest.raises(NotImplementedError, match="A1b"):
+        teng.infer_fast(prompt, "你好。", None, speaker_id="someone")
+    with pytest.raises(NotImplementedError, match="A1b"):
+        teng.infer_stream(prompt, "你好。", speaker_id="someone")
+
+
+def test_guided_infer_matches_jax(engines, tmp_path):
+    """Classifier-free guidance through the engine (num_beams=1, cfg_scale
+    2, greedy): two guided rows a sentence step through gpt2.decode_step,
+    and the wav equals the JAX engine's within one int16 step."""
+    jeng, teng, d = engines
+    prompt = str(d / "prompt.wav")
+    kw = dict(GEN, cfg_scale=2.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jeng.infer(prompt, TEXT, str(tmp_path / "jax.wav"), **kw)
+        teng.infer(prompt, TEXT, str(tmp_path / "torch.wav"), **kw)
+    _, ref = wavfile.read(str(tmp_path / "jax.wav"))
+    _, got = wavfile.read(str(tmp_path / "torch.wav"))
+    assert len(teng.last_stats["code_lens"]) == 2
+    assert got.shape == ref.shape == (sum(teng.last_stats["code_lens"]) * 1024,)
+    assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
 
 
 def test_cli_writes_a_wav(engines, tmp_path):

@@ -143,14 +143,37 @@ def test_decode_trunk_plain_matches_tpu_kernel_interpret(setup, position, holes)
     np.testing.assert_allclose(_np(gv), _np(rv), atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("top_k,top_p,penalty", [(30, 0.8, 10.0), (5, 1.0, 1.0),
-                                                 (0, 0.5, 2.0)])
-def test_sample_step_with_shared_gumbel_matches_jax(top_k, top_p, penalty):
-    B, V = 3, 50
-    rng = np.random.default_rng(top_k)
-    logits = (2 * rng.standard_normal((B, V))).astype(np.float32)
-    presence = rng.random((B, V)) < 0.2
-    finished = np.asarray([False, False, True])
+def _tied_bf16_logits(rng, B: int, V: int) -> np.ndarray:
+    """N(0, 3) logits rounded to bf16 (the type of a bf16 engine's head), and
+    each row's largest value planted again at three other columns."""
+    logits = torch.from_numpy(3 * rng.standard_normal((B, V))).bfloat16().float().numpy()
+    for b in range(B):
+        logits[b, rng.choice(V, 3, replace=False)] = logits[b].max()
+    return logits
+
+
+@pytest.mark.parametrize("top_k,top_p,penalty,ties", [
+    pytest.param(30, 0.8, 10.0, False, id="30-0.8-10.0"),
+    pytest.param(5, 1.0, 1.0, False, id="5-1.0-1.0"),
+    pytest.param(0, 0.5, 2.0, False, id="0-0.5-2.0"),
+    # a shortlist with ties: JAX's order (lower index first) decides which
+    # of equal logits the same Gumbel draw picks
+    pytest.param(30, 0.8, 10.0, True, id="bf16_ties-30-0.8-10.0"),
+    pytest.param(30, 0.8, 1.0, True, id="bf16_ties-30-0.8-1.0")])
+def test_sample_step_with_shared_gumbel_matches_jax(top_k, top_p, penalty, ties):
+    rng = np.random.default_rng(top_k + int(10 * penalty))
+    if ties:
+        B, V = 8, 8194
+        logits = _tied_bf16_logits(rng, B, V)
+        presence = rng.random((B, V)) < 0.05
+        finished = np.zeros(B, bool)
+        finished[-1] = True
+    else:
+        B, V = 3, 50
+        rng = np.random.default_rng(top_k)
+        logits = (2 * rng.standard_normal((B, V))).astype(np.float32)
+        presence = rng.random((B, V)) < 0.2
+        finished = np.asarray([False, False, True])
     for step in range(4):
         key = jax.random.fold_in(jax.random.PRNGKey(7), step)
         k = top_k if 0 < top_k < V else V
@@ -189,14 +212,19 @@ def test_greedy_inference_speech_codes_match_jax(setup):
 
 
 def test_unported_decode_modes_raise(setup):
+    """Batched rows and guidance, once refused, now run: B = 2 rows with a
+    [1, ...] conditioning, and guided rows at B = 1 and 2 (2B physical
+    rows), each with codes [B, max_new] and lengths [B].  Their codes are
+    held against JAX's in tests/test_torch_infer_fast.py."""
     _, tcfg, _, tp = setup
-    tokens = torch.zeros(1, 4, dtype=torch.long)
-    mask = torch.ones(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        uv.inference_speech(tp, tcfg, torch.zeros(1, 32, 64), tokens, mask, cfg_scale=2.0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        uv.inference_speech(tp, tcfg, torch.zeros(2, 32, 64), tokens.repeat(2, 1),
-                            mask.repeat(2, 1))
+    tokens = torch.full((2, 4), 3, dtype=torch.long)
+    mask = torch.ones(2, 4, dtype=torch.int32)
+    kw = dict(max_new=6, do_sample=False, cache_dtype=torch.float32)
+    for B, cfg_scale in ((2, 1.0), (1, 2.0), (2, 2.0)):
+        r = uv.inference_speech(tp, tcfg, torch.zeros(1, 32, 64), tokens[:B], mask[:B],
+                                cfg_scale=cfg_scale, **kw)
+        assert tuple(r.codes.shape) == (B, 6) and tuple(r.lengths.shape) == (B,)
+        assert tuple(r.finished.shape) == (B,) and 0 <= r.steps <= 5
 
 
 def test_head_split_wrapper_matches_tpu_wrapper_interpret(setup):

@@ -1,7 +1,7 @@
 """PyTorch port, pool serving: `pool_infer` against the JAX engine's on the
 same weights, the batched vocode tail against JAX's, `pool_infer_stream`,
-the stdlib HTTP server over a socket in continuous mode, and the routes not
-ported yet.  The tiny engine of tests/test_torch_engine.py, fp32."""
+the stdlib HTTP server over a socket in continuous mode and without it
+(infer_fast, infer_stream).  The tiny engine of tests/test_torch_engine.py, fp32."""
 
 import http.client
 import json
@@ -199,17 +199,25 @@ def test_http_server_continuous_mode(engines, tmp_path):
 
 
 def test_http_server_routes_not_ported_yet(engines):
-    """Non-continuous: mode="fast" and /tts_stream name ROADMAP item A11;
-    mode="normal" synthesizes through `infer`."""
+    """Non-continuous: /tts with no mode runs infer_fast (the reference's
+    serving default, beam-3), /tts_stream runs infer_stream, and
+    mode="normal" runs infer, each answering a 24 kHz int16 wav over the
+    socket; /model/reload still names ROADMAP item A1b."""
     _, teng, prompt, _ = engines
     server = _server(teng)
     try:
-        req = {"text": "你好。", "audio_path": prompt, "max_mel_tokens": 4, "seed": 1}
-        for path, body in (("/tts", req), ("/tts_stream", req)):
-            status, _, data = _post(server, path, body)
-            assert status == 500 and b"A11" in data, data
+        req = {"text": "你好。明天见。", "audio_path": prompt, "max_mel_tokens": 4, "seed": 1}
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
+            status, headers, data = _post(server, "/tts", req)
+            assert status == 200 and headers["X-Seed"] == "1"
+            sr, samples = _wav(data)
+            assert sr == 24000 and samples.dtype == np.int16
+            assert samples.shape[0] == sum(teng.last_stats["code_lens"]) * 1024 > 0
+            assert teng.last_stats["buckets"] == [1]           # infer_fast's stats
+            status, headers, stream = _post(server, "/tts_stream", req)
+            assert status == 200 and headers["Transfer-Encoding"] == "chunked"
+            assert stream[:4] == b"RIFF" and (len(stream) - 44) % 2048 == 0 and len(stream) > 44
             status, headers, data = _post(server, "/tts", {**req, "mode": "normal",
                                                            "num_beams": 1})
         assert status == 200 and _wav(data)[0] == 24000
