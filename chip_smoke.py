@@ -71,7 +71,26 @@
    step, K1 109 times per vocoder call, and a seeded request's codes the same
    alone and among seven others; a profile of two 16-step ticks of the full
    pool.
-7. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
+7. Reference checkpoints and the beam pool:
+   - a full-width engine writes gpt.pth (bf16, with speaker data) and
+     bigvgan_generator.pth (fp32) with the port's exporter, and a second
+     engine loads that directory: greedy codes equal and wavs bit-equal
+     (K2 and K1 counted), and a speaker_id request with no prompt answers
+     a wav; file sizes, load seconds and peak device memory printed;
+   - the beam pool on the small fp32 model, on the card and on the CPU:
+     greedy, sampled (the dedicated decode fed the pool's draws) and
+     staggered admission, each group's codes equal to the dedicated beam-3
+     decode's, and the card's to the CPU's;
+   - `serve(continuous=True)` with a 4-group beam pool at full width: six
+     concurrent reference-default beam-3 requests, each a 24 kHz int16 wav
+     (K1 109 times a vocoder call, no other kernel); per-request latency,
+     pool steps/s and audio seconds per wall second beside default_beam3's;
+     a 16-step profile of the pool's step; the full-width greedy agreement
+     of a pool group with the dedicated decode (reported, not gated);
+   - /model/reload onto that gpt.pth while serving: the next request runs
+     on the loaded weights after `IndexTTS.warmup`, and the card's
+     allocated memory is within 10% of what one engine held before.
+8. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
    ms and share of its bound; K2 and K4 one entry per tier, with
    `launches_per_call` and `gbytes_per_s`); before it, on a line of its
    own, the previous design's K2 and K4 times as PERF.md records them
@@ -1592,7 +1611,8 @@ def end_to_end(torch, engine_mod, httpd, kernels, prompt: str):
     buckets of 4 and 1, beam-3) and the same at num_beams=1 sampling; an
     infer_stream request against two_sentences' wav; and the server without
     --continuous.  Each path is run with the counts at 0 and read after it.
-    Returns the launches of each kernels-line entry on its paths."""
+    Returns the launches of each kernels-line entry on its paths, and the
+    default_beam3 request's stats."""
     root = os.path.join(HERE, "checkpoints_test")
     t0 = time.perf_counter()
     tts = engine_mod.IndexTTS(cfg_path=None, model_dir=root, device="cuda", seed=0)
@@ -1675,7 +1695,375 @@ def end_to_end(torch, engine_mod, httpd, kernels, prompt: str):
             beam("int8_default_beam3", eng, LONG)
         del eng
         torch.cuda.empty_cache()
-    return totals
+    return totals, beam3
+
+
+def checkpoint_round_trip(torch, engine_mod, export, kernels, prompt: str, out_dir: str):
+    """Phase 1 of the checkpoint slice, full width, bf16: engine A (random
+    weights, fixed seed) writes gpt.pth (bf16, with speaker_conditions,
+    speakers and speaker_mels for "spk") and bigvgan_generator.pth (fp32:
+    the weight-norm fold of bf16 weights then lands on them exactly) with
+    the port's exporter; engine B loads that directory.  Greedy num_beams=1
+    requests of A and B must give equal codes and bit-equal wavs (K2 once a
+    step, K1 109 times a vocode), and a speaker_id request with no prompt a
+    24 kHz int16 wav.  Returns (gpt.pth path, a checksum of B's GPT
+    weights, launches by kernel over B's requests)."""
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    root = os.path.join(HERE, "checkpoints_test")
+    d = os.path.join(out_dir, "pth_model")
+    os.makedirs(d, exist_ok=True)
+    shutil.copy(os.path.join(root, "vocab.txt"), d)
+    a = engine_mod.IndexTTS(cfg_path=None, model_dir=root, device="cuda", seed=0)
+    mel = a._prompt_mel(prompt)
+    cond = a._conditioning(mel).float().cpu().numpy()
+    gpt_pth = os.path.join(d, "gpt.pth")
+    t0 = time.perf_counter()
+    export.save_gpt_pth(gpt_pth, a.gpt_params, a.cfg.gpt, save_dtype="bf16",
+                        extras={"speaker_conditions": {"spk": cond}, "speakers": ["spk"],
+                                "speaker_mels": {"spk": mel[0].cpu().numpy()}})
+    export.save_bigvgan_pth(os.path.join(d, "bigvgan_generator.pth"), a.bigvgan_params,
+                            a.cfg.bigvgan, save_dtype="fp32")
+    save_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = engine_mod.IndexTTS(cfg_path=None, model_dir=d, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if b.speaker_list != ["spk"] or b.mean_condition is not None:
+        raise SmokeFailure(f"checkpoint: speakers {b.speaker_list}")
+    gen = dict(num_beams=1, do_sample=False, max_mel_tokens=200, max_text_tokens_per_sentence=120)
+    out = {}
+    launches = {n: 0 for n in kernels}
+    for name, eng, spk in (("A", a, None), ("B", b, None), ("B speaker_id", b, "spk")):
+        for k in kernels.values():
+            k.launches = 0
+        path = os.path.join(out_dir, f"ckpt_{name.replace(' ', '_')}.wav")
+        eng.infer(None if spk else prompt, LONG, path, speaker_id=spk, **gen)
+        n = {k: v.launches for k, v in kernels.items()}
+        s = eng.last_stats
+        sr, wav = wavfile.read(path)
+        out[name] = (s["codes"], wav, n, s)
+        if sr != 24000 or wav.dtype != np.int16 or wav.shape[0] != sum(s["code_lens"]) * 1024 \
+                or n["K2"] != s["decode_steps"] or n["K1"] != K1_PER_VOCODE * len(s["code_lens"]):
+            raise SmokeFailure(f"checkpoint {name}: wav {sr} {wav.dtype} {wav.shape}, "
+                               f"launches {n} over {s['decode_steps']} steps")
+        if eng is b:
+            launches = {k: launches[k] + n[k] for k in n}
+    codes_equal = all(np.array_equal(x, y) for x, y in zip(out["A"][0], out["B"][0])) \
+        and len(out["A"][0]) == len(out["B"][0])
+    wav_equal = np.array_equal(out["A"][1], out["B"][1])
+    checksum = float(b.gpt_params["mel_head"]["kernel"].float().sum())
+    emit({"phase": "checkpoint round trip, full width, bf16 gpt.pth + fp32 "
+                   "bigvgan_generator.pth",
+          "gpt_pth_mb": os.path.getsize(gpt_pth) / 2 ** 20,
+          "bigvgan_pth_mb": os.path.getsize(os.path.join(d, "bigvgan_generator.pth")) / 2 ** 20,
+          "save_s": save_s, "load_s": load_s, "load_peak_mem_gib": load_peak,
+          "code_lens": out["B"][3]["code_lens"], "codes_equal": codes_equal,
+          "wav_bit_equal": wav_equal,
+          "speaker_id_request": {"samples": int(out["B speaker_id"][1].shape[0]),
+                                 "code_lens": out["B speaker_id"][3]["code_lens"],
+                                 "rtf": out["B speaker_id"][3]["rtf"]},
+          "launches_B": launches})
+    if not codes_equal or not wav_equal:
+        raise SmokeFailure(f"checkpoint round trip: codes equal {codes_equal}, wav bit-equal "
+                           f"{wav_equal}")
+    del a, b
+    torch.cuda.empty_cache()
+    return gpt_pth, checksum, launches
+
+
+def beam_pool_small_agreement(torch, engine_mod, uv, beam_pool, prompt: str) -> None:
+    """Phase 2: the beam pool on the small fp32 model, on the card and on the
+    CPU.  Greedy (five requests through two groups), sampled (four requests,
+    their own seeds and knobs, 4-step ticks) and staggered admission: each
+    group's codes must equal the dedicated beam-3 decode's (sampled: fed the
+    pool's draws), and the card's codes the CPU's."""
+    import numpy as np
+    from indextts_tpu_torch.config import Config
+
+    base = dict(config=Config.from_dict(SMALL_MODEL),
+                model_dir=os.path.join(HERE, "checkpoints_test"), seed=0,
+                precision_config={"gpt": "fp32", "vocoder": "fp32"})
+    ref = engine_mod.IndexTTS(device="cpu", **base)
+    dut = engine_mod.IndexTTS(device="cuda", **base)
+    dut.load_numpy_params(_to_numpy(ref.gpt_params), _to_numpy(ref.bigvgan_params))
+    ids = [np.asarray(ref.tokenizer.encode(t), np.int32) for t in POOL_TEXTS[:5]]
+    knobs = [dict(temperature=0.9, top_p=0.85, repetition_penalty=4.0),
+             dict(temperature=1.3, top_p=0.7, repetition_penalty=1.5),
+             dict(temperature=1.0, top_p=0.8, repetition_penalty=10.0),
+             dict(temperature=0.7, top_p=0.95, repetition_penalty=2.0)]
+    max_new, V = 24, ref.cfg.gpt.number_mel_codes
+    results = {}
+    for dev, eng in (("cpu", ref), ("cuda", dut)):
+        cond = eng._conditioning(eng._prompt_mel(prompt))
+
+        def dedicated(x, seed=None, **kw):
+            tokens, mask = eng._text_inputs([x])
+            draws = None if seed is None else [
+                beam_pool.select_noise(torch.tensor([seed], device=eng.device),
+                                       torch.tensor([i], device=eng.device), 3 * V)
+                for i in range(max_new)]
+            r = uv.inference_speech_beam(eng.gpt_params_batched, eng.cfg.gpt, cond, tokens,
+                                         mask, None, max_new=max_new, num_beams=3,
+                                         do_sample=seed is not None, gumbel=draws,
+                                         cache_dtype=torch.float32, **kw)
+            return r.codes[0, : int(r.lengths[0])].cpu().tolist()
+
+        kw = dict(num_groups=2, max_text_width=32, max_new=max_new)
+        pool = eng.create_beam_batcher(prompt, do_sample=False, **kw)
+        rids = [pool.submit(x) for x in ids]
+        res = pool.run()
+        greedy = [res[r].tolist() for r in rids]
+        pool = eng.create_beam_batcher(prompt, steps_per_tick=4, **kw)
+        rids = [pool.submit(x, seed=300 + i, sampling=k)
+                for i, (x, k) in enumerate(zip(ids, knobs))]
+        res = pool.run()
+        sampled = [res[r].tolist() for r in rids]
+        pool = eng.create_beam_batcher(prompt, **kw)
+        out = {}
+        r1 = pool.submit(ids[0], seed=7, done_cb=lambda r, c: out.__setitem__(r, c.tolist()))
+        for _ in range(3):
+            pool.step()
+        r2 = pool.submit(ids[1], seed=8, done_cb=lambda r, c: out.__setitem__(r, c.tolist()))
+        while pool._queue or pool._live:
+            pool.step()
+        pool.flush()
+        staggered = [out[r1], out[r2]]
+        want = ([dedicated(x) for x in ids],
+                [dedicated(x, seed=300 + i, **k) for i, (x, k) in enumerate(zip(ids, knobs))],
+                [dedicated(ids[0], seed=7), dedicated(ids[1], seed=8)])
+        results[dev] = (greedy, sampled, staggered)
+        for name, got, exp in zip(("greedy", "sampled", "staggered"), results[dev], want):
+            if got != exp:
+                raise SmokeFailure(f"beam pool small model on {dev}, {name}: pool {got} != "
+                                   f"dedicated {exp}")
+    ok = results["cuda"] == results["cpu"]
+    emit({"check": "beam pool small model: pool vs dedicated beam-3 (greedy, sampled with the "
+                   "pool's draws, staggered), card vs CPU",
+          "code_lens": [[len(c) for c in part] for part in results["cuda"]], "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"beam pool small model: card {results['cuda']} != CPU "
+                           f"{results['cpu']}")
+
+
+def _profile_ticks(torch, pool, label: str, ticks: int = 1) -> None:
+    """Where a pool tick's time goes: `ticks` ticks under torch.profiler.
+    Prints ms a step, the device's busy share and device ops a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    n0 = pool.step_count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            pool.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = max(pool.step_count - n0, 1)
+    events = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    busy_us = sum(dev(e) for e in events)
+    launches = sum(e.count for e in events if dev(e) > 0 and not e.key.startswith("cuda"))
+    top_dev = sorted(events, key=dev, reverse=True)[:8]
+    emit({"phase": label, "steps": n, "wall_ms_per_step": wall * 1e3 / n,
+          "device_busy_ms_per_step": busy_us / 1e3 / n,
+          "device_busy_share": busy_us / 1e6 / wall if wall else None,
+          "device_ops_per_step": launches / n,
+          "top_device_ms_per_step": {e.key: dev(e) / 1e3 / n for e in top_dev}})
+
+
+def served_beam(torch, engine_mod, httpd, uv, kernels, prompt: str, beam3: dict) -> int:
+    """Phase 3: `serve(continuous=True)` with a 4-group beam pool at the full
+    width, bf16: six concurrent reference-default requests (num_beams 3,
+    do_sample, top_k 30, top_p 0.8, temperature 1.0, repetition_penalty 10,
+    max_mel_tokens 200), each a 24 kHz int16 wav; K1 109 times a vocoder
+    call and no other kernel.  Prints per-request latency, pool steps/s and
+    audio seconds per wall second beside default_beam3's; then a 16-step
+    profile of the pool's step and the full-width greedy agreement of a pool
+    group with the dedicated decode (first divergent step, share of equal
+    codes; bf16 products over 3 and 12 rows may round apart, so not gated).
+    Returns K1's launches on the served path."""
+    import io
+    import threading
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    root = os.path.join(HERE, "checkpoints_test")
+    eng = engine_mod.IndexTTS(cfg_path=None, model_dir=root, device="cuda", seed=0)
+    vocodes = [0]
+    vocode = eng._vocode
+
+    def counted(*a):
+        vocodes[0] += 1
+        return vocode(*a)
+
+    eng._vocode = counted
+    srv = httpd.serve(None, root, host="127.0.0.1", port=0, engine_instance=eng,
+                      continuous=True, beam_pool_kwargs={"num_groups": 4})
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    texts = [LONG, "你好，欢迎使用语音合成。今天天气很好。", POOL_TEXTS[3], POOL_TEXTS[6],
+             "我们去散步吧。明天见。", TWO]
+    reqs = [{"text": t, "audio_path": prompt, "seed": 200 + i, "num_beams": 3, "do_sample": True,
+             "top_k": 30, "top_p": 0.8, "temperature": 1.0, "repetition_penalty": 10.0,
+             "max_mel_tokens": 200, "max_text_tokens_per_sentence": 120}
+            for i, t in enumerate(texts)]
+    try:
+        pool = srv.service.beam_pool(True)      # build the pool before the clock starts
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        results = [None] * len(reqs)
+
+        def call(i):
+            results[i] = _http(port, "/tts", reqs[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        steps = pool.step_count
+    finally:
+        srv.shutdown()
+    audio_s, per_request = 0.0, []
+    for body, res in zip(reqs, results):
+        if res is None or res[0] != 200:
+            raise SmokeFailure(f"served beam-3: seed {body['seed']} answered "
+                               f"{None if res is None else (res[0], res[2][:200])}")
+        sr, samples = wavfile.read(io.BytesIO(res[2]))
+        if res[2][:4] != b"RIFF" or sr != 24000 or samples.dtype != np.int16 \
+                or samples.shape[0] == 0 or samples.shape[0] % 1024:
+            raise SmokeFailure(f"served beam-3: sr {sr} {samples.dtype} {samples.shape}")
+        audio_s += samples.shape[0] / 24000
+        per_request.append({"seed": body["seed"], "s": res[3], "audio_s": samples.shape[0] / 24000})
+    emit({"phase": "served beam-3 through --continuous, full width, bf16, 4-group beam pool",
+          "requests": per_request, "wall_s": wall, "pool_steps": steps,
+          "pool_steps_per_s": steps / wall, "audio_s_per_wall_s": audio_s / wall,
+          "default_beam3_audio_s_per_wall_s": 1 / beam3["rtf"],
+          "default_beam3_steps_per_s": beam3["decode_steps"] / beam3["gpt_gen_time"],
+          "vocoder_calls": vocodes[0], "launches": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if launches["K1"] != K1_PER_VOCODE * vocodes[0] or vocodes[0] == 0 or launches["K2"] \
+            or launches["K3"] or launches["K4"]:
+        raise SmokeFailure(f"served beam-3: launches {launches} for {vocodes[0]} vocoder calls")
+
+    # a 16-step tick of the full pool under the profiler
+    del eng._vocode
+    ids = [np.asarray(eng.tokenizer.encode(t), np.int32) for t in texts[:4]]
+    pool = eng.create_beam_batcher(prompt, num_groups=4)
+    for i, x in enumerate(ids):
+        pool.submit(x, max_new=200, seed=i)
+    pool.step()                                   # admission and the first tick
+    _profile_ticks(torch, pool, "beam pool step profile (4 groups x 3 beams, bf16, "
+                                "full width, one 16-step tick)")
+    pool.run()
+    # greedy: a pool group against the dedicated decode at full width
+    pool = eng.create_beam_batcher(prompt, num_groups=4, do_sample=False)
+    m = min(200, pool.max_new)
+    rid = pool.submit(ids[0], max_new=m)
+    got = pool.run()[rid]
+    tokens, mask = eng._text_inputs([ids[0]])
+    r = uv.inference_speech_beam(eng.gpt_params_batched, eng.cfg.gpt,
+                                 eng._conditioning(eng._prompt_mel(prompt)), tokens, mask, None,
+                                 max_new=m, num_beams=3, do_sample=False,
+                                 cache_dtype=eng.gpt_dtype)
+    want = r.codes[0, : int(r.lengths[0])].cpu().numpy()
+    n = min(len(got), len(want))
+    diverge = next((i for i in range(n) if got[i] != want[i]), None)
+    emit({"phase": "beam pool vs dedicated beam-3, greedy, full width, bf16 (reported, not "
+                   "gated)", "pool_len": len(got), "dedicated_len": len(want),
+          "first_divergent_step": diverge,
+          "equal_code_share": float(np.mean(got[:n] == want[:n])) if n else None})
+    del eng, pool
+    torch.cuda.empty_cache()
+    return launches["K1"]
+
+
+def reload_and_warmup(torch, engine_mod, httpd, kernels, prompt: str, gpt_pth: str,
+                      checksum: float) -> dict:
+    """Phase 4: a --continuous server (random weights) answers a beam-3
+    request; /model/reload onto phase 1's gpt.pth answers {"status":
+    "reloaded"}; the new engine (the loaded weights: the same checksum as
+    phase 1's engine B) runs `IndexTTS.warmup`, then the next request.  With
+    the old drive threads gone and a gc, the card's allocated memory must be
+    within 10% of what one engine and its pool held before the reload.
+    Returns the launches by kernel over the phase."""
+    import gc
+    import threading
+
+    root = os.path.join(HERE, "checkpoints_test")
+    srv = httpd.serve(None, root, host="127.0.0.1", port=0, continuous=True, device="cuda",
+                      beam_pool_kwargs={"num_groups": 2})
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    body = {"text": TWO, "audio_path": prompt, "seed": 11, "num_beams": 3, "max_mel_tokens": 120,
+            "max_text_tokens_per_sentence": 120}
+
+    def idle():
+        for _ in range(500):
+            pools = list(srv.service._beam_pools.values())
+            if all(not p._queue and not p._live for p in pools):
+                return
+            time.sleep(0.01)
+
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        first = _http(port, "/tts", body)
+        idle()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        old_threads = list(srv.service._threads)
+        status, _, data, reload_s = _http(port, "/model/reload", {"gpt_path": gpt_pth})
+        for t in old_threads:
+            t.join(30)
+        eng = srv.service.engine()
+        loaded = float(eng.gpt_params["mel_head"]["kernel"].float().sum())
+        t0 = time.perf_counter()
+        eng.warmup(text_widths=(64,), max_mel_tokens=120)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        after_req = _http(port, "/tts", body)
+        idle()
+        launches = {n: k.launches for n, k in kernels.items()}
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        alive = sum(t.is_alive() for t in old_threads)
+    finally:
+        srv.shutdown()
+    ratio = after / before
+    emit({"phase": "reload and warmup", "first_request": {"status": first[0], "s": first[3]},
+          "reload": {"status": status, "answer": json.loads(data), "s": reload_s},
+          "loaded_checksum_equal": loaded == checksum, "warmup_s": warmup_s,
+          "request_after_warmup": {"status": after_req[0], "s": after_req[3]},
+          "allocated_gib_before": before / 2 ** 30, "allocated_gib_after": after / 2 ** 30,
+          "after_over_before": ratio, "old_drive_threads_alive": alive, "launches": launches})
+    if first[0] != 200 or status != 200 or json.loads(data).get("status") != "reloaded" \
+            or after_req[0] != 200 or loaded != checksum:
+        raise SmokeFailure(f"reload: first {first[0]}, reload {status} {data[:200]}, after "
+                           f"{after_req[0]}, checksum {loaded} vs {checksum}")
+    if abs(ratio - 1.0) > 0.10 or alive:
+        raise SmokeFailure(f"reload: allocated {after / 2 ** 30:.3f} GiB after against "
+                           f"{before / 2 ** 30:.3f} before ({alive} old drive threads alive)")
+    if launches["K1"] == 0 or launches["K1"] % K1_PER_VOCODE:
+        raise SmokeFailure(f"reload: launches {launches}")
+    return launches
+
 
 
 def main(argv=None) -> int:
@@ -1701,7 +2089,8 @@ def main(argv=None) -> int:
     from indextts_tpu_torch.ops import filters, quantization, sampling
     from indextts_tpu_torch.ops.cuda import _build, anti_alias, decode_layer, permute, pool_trunk
     from indextts_tpu_torch.ops.cuda.anti_alias import fused_anti_alias_activation as k1
-    from indextts_tpu_torch.serve import httpd
+    from indextts_tpu_torch.io import export
+    from indextts_tpu_torch.serve import beam_pool, httpd
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1738,7 +2127,18 @@ def main(argv=None) -> int:
     pool_small_agreement(torch, engine_mod, pool_trunk, prompt)
     kernels = {"K1": k1, "K2": decode_layer.fused_decode_trunk_flat,
                "K3": permute.permute_cache_rows, "K4": pool_trunk.fused_pool_step}
-    launches = end_to_end(torch, engine_mod, httpd, kernels, prompt)
+    launches, beam3 = end_to_end(torch, engine_mod, httpd, kernels, prompt)
+    # the checkpoint and beam-pool slice: each path with the counts at 0 just
+    # before it, read just after
+    gpt_pth, checksum, n = checkpoint_round_trip(torch, engine_mod, export, kernels, prompt,
+                                                 out_dir)
+    launches["fused_anti_alias_activation"] += n["K1"]
+    launches["fused_decode_trunk_flat[bf16]"] += n["K2"]
+    beam_pool_small_agreement(torch, engine_mod, uv, beam_pool, prompt)
+    launches["fused_anti_alias_activation"] += served_beam(torch, engine_mod, httpd, uv,
+                                                           kernels, prompt, beam3)
+    n = reload_and_warmup(torch, engine_mod, httpd, kernels, prompt, gpt_pth, checksum)
+    launches["fused_anti_alias_activation"] += n["K1"]
     # the beam-reorder path: counts at 0 just before it, read just after
     tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
                               device="cuda", seed=0)

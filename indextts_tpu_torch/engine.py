@@ -10,8 +10,11 @@ of sentences as batched rows (reference infer.py:595-777), one vocoder call
 per bucket.  One engine lock serialises the syntheses' device phases.  Pool
 serving (`create_batcher`, `pool_infer`, `pool_infer_stream`) decodes
 sentences of many requests in one continuous-batching pool
-(serve/scheduler.py), and an optional coordinator vocodes sentences that
-finish together as one batch.  The GPT weights may
+(serve/scheduler.py), or at beam-3 in groups of a beam pool
+(`create_beam_batcher`, serve/beam_pool.py), and an optional coordinator
+vocodes sentences that finish together as one batch.  Weights come from
+the reference's `.pth` checkpoints (io/checkpoint.py), with their speaker
+conditions for `speaker_id` requests.  The GPT weights may
 be quantized to int8 or int4 with an fp8 KV cache (precision keys as in the
 JAX engine).  Runs on `cuda` unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU it raises.
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import json
 import os
 import queue as queue_mod
 import threading
@@ -32,12 +36,13 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch.config import Config
-from indextts_tpu_torch.io import from_jax
+from indextts_tpu_torch.io import checkpoint, from_jax
 from indextts_tpu_torch.models import bigvgan as bigvgan_model
 from indextts_tpu_torch.models import unified_voice as uv
 from indextts_tpu_torch.ops import quantization
 from indextts_tpu_torch.ops.mel import MelSpectrogramFeatures
 from indextts_tpu_torch.ops.sampling import mix_seed
+from indextts_tpu_torch.serve.beam_pool import BeamPoolBatcher
 from indextts_tpu_torch.serve.scheduler import ContinuousBatcher, PoolGroup
 from indextts_tpu_torch.utils import audio as audio_io
 from indextts_tpu_torch.utils.textnorm import TextNormalizer
@@ -250,9 +255,16 @@ class IndexTTS:
                  model_dir: str = "checkpoints", is_fp16: bool = True,
                  device: Optional[str] = None,
                  precision_config: Optional[Dict[str, Any]] = None,
-                 seed: Optional[int] = None, config: Optional[Config] = None):
+                 seed: Optional[int] = None, config: Optional[Config] = None,
+                 gpt_path: Optional[str] = None, speaker_info_path: Optional[str] = None):
         """`config` takes the place of `cfg_path` (no YAML needed); with
-        neither, the dataclass defaults (the flagship) apply."""
+        neither, the dataclass defaults (the flagship) apply.  The GPT
+        checkpoint is `gpt_path` (absolute, or relative to `model_dir`), else
+        the config's `gpt_checkpoint` in `model_dir`; the vocoder's is the
+        config's `bigvgan_checkpoint` there.  A missing file leaves random
+        weights from a fixed seed.  `speaker_info_path` names the
+        speaker_info.json whose speakers (and their medoid_mel.npy files
+        beside it) `speaker_id` requests may use."""
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("IndexTTS: CUDA is not available; pass device='cpu' to "
@@ -311,24 +323,60 @@ class IndexTTS:
         self.stop_mel_token = self.cfg.gpt.stop_mel_token
         self._rng_seed = seed if seed is not None else 0
 
-        # --- models: random weights until checkpoint loading is ported ----
-        gpt_path = os.path.join(model_dir, self.cfg.gpt_checkpoint)
-        bv_path = os.path.join(model_dir, self.cfg.bigvgan_checkpoint)
-        for path in (gpt_path, bv_path):
-            if os.path.exists(path):
-                raise NotImplementedError(
-                    f"{path}: loading reference checkpoints is ROADMAP item A1b")
-        warnings.warn(f"no checkpoints in {model_dir}; random weights")
+        # --- models: reference checkpoints, else random weights --------
         gen = lambda s: torch.Generator(device=self.device).manual_seed(s)  # noqa: E731
-        self._set_gpt_params(uv.init_params(self.cfg.gpt, gen(0), self.gpt_dtype, self.device))
-        self.bigvgan_params = bigvgan_model.init_params(
-            self.cfg.bigvgan, gen(1), self.vocoder_dtype, self.device)
+        self.gpt_path = (gpt_path if gpt_path and os.path.isabs(gpt_path)
+                         else os.path.join(model_dir, gpt_path) if gpt_path
+                         else os.path.join(model_dir, self.cfg.gpt_checkpoint))
+        self.speaker_conditions: Dict[str, np.ndarray] = {}
+        self.speaker_mels: Dict[str, np.ndarray] = {}
+        self.mean_condition: Optional[np.ndarray] = None
+        if os.path.isdir(self.gpt_path):
+            raise NotImplementedError(f"{self.gpt_path} is a directory: native checkpoint "
+                                      "directories are ROADMAP item A14")
+        if os.path.exists(self.gpt_path):
+            # the numpy tree goes to the device in gpt_dtype, and is quantized
+            # from that master as the precision keys say
+            tree, extras = checkpoint.load_gpt_checkpoint(self.gpt_path, self.cfg.gpt)
+            self._set_gpt_params(from_jax.gpt_params_from_numpy(
+                tree, self.cfg.gpt, self.gpt_dtype, self.device))
+            del tree
+            self.speaker_conditions = extras.get("speaker_conditions", {})
+            self.speaker_mels = extras.get("speaker_mels", {})
+            self.mean_condition = extras.get("mean_condition")
+        else:
+            warnings.warn(f"gpt checkpoint {self.gpt_path} not found; random weights")
+            self._set_gpt_params(uv.init_params(self.cfg.gpt, gen(0), self.gpt_dtype,
+                                                self.device))
+        bv_path = os.path.join(model_dir, self.cfg.bigvgan_checkpoint)
+        if os.path.exists(bv_path):
+            self.bigvgan_params = from_jax.bigvgan_params_from_numpy(
+                checkpoint.load_bigvgan_checkpoint(bv_path, self.cfg.bigvgan), self.cfg.bigvgan,
+                self.vocoder_dtype, self.device)
+        else:
+            warnings.warn(f"bigvgan checkpoint {bv_path} not found; random weights")
+            self.bigvgan_params = bigvgan_model.init_params(
+                self.cfg.bigvgan, gen(1), self.vocoder_dtype, self.device)
 
         # --- text front end ---------------------------------------------
         self.normalizer = TextNormalizer()
         self.normalizer.load()
         self.tokenizer = TextTokenizer(os.path.join(model_dir, self.cfg.dataset.bpe_model),
                                        self.normalizer)
+
+        self.speaker_list: List[str] = []
+        if speaker_info_path and os.path.exists(speaker_info_path):
+            with open(speaker_info_path, "r", encoding="utf-8") as f:
+                info = json.load(f)
+            self.speaker_list = [it["speaker"] for it in info if "speaker" in it]
+            # per-speaker vocoder mels written by extraction, beside the file
+            data_dir = os.path.dirname(os.path.abspath(speaker_info_path))
+            for sp in self.speaker_list:
+                mel_path = os.path.join(data_dir, sp, "medoid_mel.npy")
+                if sp not in self.speaker_mels and os.path.exists(mel_path):
+                    self.speaker_mels[sp] = np.load(mel_path)
+        elif self.speaker_conditions:
+            self.speaker_list = list(self.speaker_conditions)
 
         self.cache_audio_prompt: Optional[str] = None
         self.cache_cond_mel: Optional[torch.Tensor] = None
@@ -380,20 +428,38 @@ class IndexTTS:
                 self.cache_audio_prompt = audio_prompt
             return self.cache_cond_mel
 
-    def _conditioning(self, cond_mel: torch.Tensor) -> torch.Tensor:
+    def _conditioning(self, cond_mel: Optional[torch.Tensor],
+                      speaker_id: Optional[str] = None) -> torch.Tensor:
+        """Conditioning latents [1, 32, D]: the checkpoint's stored condition
+        of `speaker_id`, else the prompt mel's, else the checkpoint's
+        mean_condition (reference get_conditioning, gpt/model.py:490-517)."""
+        if speaker_id is not None:
+            if speaker_id not in self.speaker_conditions:
+                raise ValueError(f"unknown speaker_id: {speaker_id}")
+            return torch.as_tensor(self.speaker_conditions[speaker_id]).to(
+                self.device, self.gpt_dtype)
+        if cond_mel is None:
+            if self.mean_condition is not None:
+                return torch.as_tensor(self.mean_condition).to(self.device, self.gpt_dtype)
+            raise ValueError("no audio prompt, no speaker_id, and the checkpoint carries no "
+                             "mean_condition: cannot derive speaker conditioning")
         lengths = torch.full((cond_mel.shape[0],), cond_mel.shape[-1], device=self.device)
         return uv.get_conditioning(self.gpt_params, self.cfg.gpt,
                                    cond_mel.to(self.gpt_dtype), lengths)
 
     def _mel_ref(self, cond_mel: Optional[torch.Tensor],
                  speaker_id: Optional[str]) -> torch.Tensor:
-        """The vocoder's speaker mel [1, T_mel, n_mels] from the prompt's mel."""
-        if speaker_id is not None:
-            raise NotImplementedError("speaker_id needs checkpoint speaker data "
-                                      "(ROADMAP item A1b)")
-        if cond_mel is None:
-            raise ValueError("an audio prompt is required")
-        return cond_mel.transpose(1, 2)
+        """The vocoder's speaker mel [1, T_mel, n_mels]: the prompt's, else
+        the speaker's stored medoid mel (never a zeros mel, which would be
+        the ECAPA embedding of silence)."""
+        if cond_mel is not None:
+            return cond_mel.transpose(1, 2)
+        if speaker_id is not None and speaker_id in self.speaker_mels:
+            mel = np.asarray(self.speaker_mels[speaker_id], np.float32)   # [n_mels, T]
+            return torch.as_tensor(mel.T[None], device=self.device)
+        raise ValueError("no audio prompt and no stored speaker mel for the vocoder's ECAPA "
+                         "conditioning: provide an audio prompt, or a speaker with a "
+                         "medoid_mel.npy")
 
     def _text_inputs(self, token_lists) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode text tokens and mask [B, width] on the device: start/stop
@@ -598,12 +664,9 @@ class IndexTTS:
 
     # -- public API -------------------------------------------------------
 
-    def _check_request(self, audio_prompt: Optional[str], speaker_id: Optional[str]) -> None:
-        if speaker_id is not None:
-            raise NotImplementedError("speaker_id needs checkpoint speaker data "
-                                      "(ROADMAP item A1b)")
-        if not audio_prompt:
-            raise ValueError("an audio prompt is required")
+    def _check_request(self, speaker_id: Optional[str]) -> None:
+        if speaker_id is not None and self.speaker_list and speaker_id not in self.speaker_list:
+            raise ValueError(f"invalid speaker_id: {speaker_id}")
 
     def _generation_cap(self, gen: Dict[str, Any]) -> int:
         """The effective max_mel_tokens: the mel position table caps it."""
@@ -657,10 +720,10 @@ class IndexTTS:
         stalled consumer does not block other syntheses (at most
         `stream_ahead` chunks wait in the queue).  Stats go to `stats_out`
         and `last_stats`, with `time_to_first_audio`."""
-        self._check_request(audio_prompt, speaker_id)
+        self._check_request(speaker_id)
         with self._infer_lock:
-            cond_mel = self._prompt_mel(audio_prompt)
-            cond_latent = self._conditioning(cond_mel)
+            cond_mel = self._prompt_mel(audio_prompt) if audio_prompt else None
+            cond_latent = self._conditioning(cond_mel, speaker_id)
             mel_ref = self._mel_ref(cond_mel, speaker_id)
         sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
                                                    max_text_tokens_per_sentence)
@@ -792,20 +855,20 @@ class IndexTTS:
         sentences are bucketed by length (`bucket_sentences`) and each bucket
         decodes as one batch of rows; bucket i samples from a generator
         seeded with mix_seed(seed, i).  Holds the engine lock throughout."""
-        self._check_request(audio_prompt, speaker_id)
+        self._check_request(speaker_id)
         with self._infer_lock:
             return self._infer_fast_locked(audio_prompt, text, output_path, verbose,
                                            max_text_tokens_per_sentence,
-                                           sentences_bucket_max_size, seed,
+                                           sentences_bucket_max_size, speaker_id, seed,
                                            dict(generation_kwargs))
 
     def _infer_fast_locked(self, audio_prompt, text, output_path, verbose,
-                           max_text_tokens_per_sentence, sentences_bucket_max_size, seed,
-                           gen: Dict[str, Any]):
+                           max_text_tokens_per_sentence, sentences_bucket_max_size,
+                           speaker_id, seed, gen: Dict[str, Any]):
         start_time = time.perf_counter()
-        cond_mel = self._prompt_mel(audio_prompt)
-        cond_latent = self._conditioning(cond_mel)
-        mel_ref = cond_mel.transpose(1, 2)                  # vocoder's [1, T, n_mels]
+        cond_mel = self._prompt_mel(audio_prompt) if audio_prompt else None
+        cond_latent = self._conditioning(cond_mel, speaker_id)
+        mel_ref = self._mel_ref(cond_mel, speaker_id)       # vocoder's [1, T, n_mels]
         sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
                                                    max_text_tokens_per_sentence)
         sampling_rate = self.cfg.dataset.sample_rate
@@ -887,12 +950,13 @@ class IndexTTS:
     def _pool_sentences(self, audio_prompt, text, speaker_id, max_text_tokens_per_sentence):
         """Conditioning, vocoder mel and sentence token ids of a pool request."""
         cond_mel = self._prompt_mel(audio_prompt) if audio_prompt else None
+        cond = self._conditioning(cond_mel, speaker_id)
         mel_ref = self._mel_ref(cond_mel, speaker_id)
         sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text),
                                                    max_text_tokens_per_sentence)
         id_lists = [np.asarray(self.tokenizer.convert_tokens_to_ids(s), np.int32)
                     for s in sentences]
-        return self._conditioning(cond_mel), mel_ref, id_lists
+        return cond, mel_ref, id_lists
 
     def _pool_submit(self, batcher, cond, id_lists, done_cb, seed, sampling,
                      max_mel_tokens) -> List[int]:
@@ -991,27 +1055,62 @@ class IndexTTS:
 
         return chunks()
 
+    def _pool_conditioning(self, audio_prompt: Optional[str],
+                           speaker_id: Optional[str]) -> torch.Tensor:
+        """A pool's base conditioning: the prompt's or the speaker's, else the
+        checkpoint's mean_condition, else zeros (each request may bring its
+        own)."""
+        if audio_prompt is None and speaker_id is None and self.mean_condition is None:
+            return torch.zeros(1, self.cfg.gpt.condition_num_latent, self.cfg.gpt.model_dim,
+                               dtype=self.gpt_dtype, device=self.device)
+        cond_mel = self._prompt_mel(audio_prompt) if audio_prompt else None
+        return self._conditioning(cond_mel, speaker_id)
+
+    def _pool_defaults(self, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        kwargs.setdefault("cache_dtype", self.gpt_dtype)
+        kwargs.setdefault("kv_dtype", self.kv_cache_dtype)
+        kwargs.setdefault("max_new", min(600, self.cfg.gpt.max_mel_tokens))
+        # multi-step ticks on the card; single steps on the CPU, where each
+        # step is slow anyway
+        kwargs.setdefault("steps_per_tick", 16 if self.device.type == "cuda" else 1)
+        return kwargs
+
+    def warmup(self, batch_sizes: Sequence[int] = (1,), text_widths: Sequence[int] = (64, 128),
+               max_mel_tokens: int = 600, **generation_kwargs) -> None:
+        """Run `_decode_bucket` once for each (batch size, text width) at the
+        real `max_mel_tokens`, so the first request does not pay for the
+        kernel build, cuDNN's and cuBLAS's first use or the caching
+        allocator's growth."""
+        rng = np.random.default_rng(0)
+        cond = torch.zeros(1, self.cfg.gpt.condition_num_latent, self.cfg.gpt.model_dim,
+                           dtype=self.gpt_dtype, device=self.device)
+        gen = {**generation_kwargs, "max_mel_tokens": max_mel_tokens}
+        with self._device_scope(), self._infer_lock:
+            for B in batch_sizes:
+                for width in text_widths:
+                    ids = [rng.integers(2, 100, (width - 2,)).astype(np.int32)
+                           for _ in range(B)]
+                    self._decode_bucket(cond, ids, torch.Generator(device=self.device)
+                                        .manual_seed(0), gen)
+
+    def create_beam_batcher(self, audio_prompt: Optional[str] = None,
+                            speaker_id: Optional[str] = None, **kwargs) -> BeamPoolBatcher:
+        """Continuous beam decode pool (serve/beam_pool.py): the reference's
+        default num_beams=3 requests on the throughput path.  submit / step
+        / run / cancel as `create_batcher`'s pools, so `pool_infer`,
+        `pool_infer_stream` and the server's drive loop take it as it is."""
+        return BeamPoolBatcher(self.gpt_params_batched, self.cfg.gpt,
+                               self._pool_conditioning(audio_prompt, speaker_id),
+                               device=self.device, **self._pool_defaults(kwargs))
+
     def create_batcher(self, audio_prompt: Optional[str] = None,
                        speaker_id: Optional[str] = None, dp: int = 0, **kwargs):
         """Continuous-batching decode pool (serve/scheduler.py) over this
         engine's weights, on its device: submit tokenised sentences, drain
-        codes as they finish.  Its base conditioning is the prompt's (zeros
-        without one; each request may bring its own).  `dp` > 1 returns a
-        `PoolGroup`, one pool per card over cuda:0 .. cuda:dp-1."""
-        if speaker_id is not None:
-            raise NotImplementedError("speaker_id needs checkpoint speaker data "
-                                      "(ROADMAP item A1b)")
-        if audio_prompt is None:
-            cond = torch.zeros(1, self.cfg.gpt.condition_num_latent, self.cfg.gpt.model_dim,
-                               dtype=self.gpt_dtype, device=self.device)
-        else:
-            cond = self._conditioning(self._prompt_mel(audio_prompt))
-        kwargs.setdefault("cache_dtype", self.gpt_dtype)
-        kwargs.setdefault("kv_dtype", self.kv_cache_dtype)
-        kwargs.setdefault("max_new", min(600, self.cfg.gpt.max_mel_tokens))
-        # multi-step ticks (with staged refill) on the card; single steps on
-        # the CPU, where each step is slow anyway
-        kwargs.setdefault("steps_per_tick", 16 if self.device.type == "cuda" else 1)
+        codes as they finish.  `dp` > 1 returns a `PoolGroup`, one pool per
+        card over cuda:0 .. cuda:dp-1."""
+        cond = self._pool_conditioning(audio_prompt, speaker_id)
+        kwargs = self._pool_defaults(kwargs)
         if dp and dp > 1:
             if self.device.type != "cuda" or dp > torch.cuda.device_count():
                 raise ValueError(f"dp={dp} needs {dp} CUDA devices; "

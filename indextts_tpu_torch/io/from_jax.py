@@ -57,7 +57,10 @@ def _convert(tree, like, dtype, device, path="params"):
     arr = np.asarray(tree)
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"{path}: shape {arr.shape} != expected {tuple(like.shape)}")
-    return torch.tensor(arr.astype(np.float32)).to(
+    # row-major whatever the source's layout (a converter's transposed view
+    # would otherwise give a strided tensor, which the products take in
+    # another summation order than the engine's own contiguous weights)
+    return torch.tensor(np.ascontiguousarray(arr, dtype=np.float32)).to(
         device=device, dtype=dtype or like.dtype)
 
 

@@ -264,6 +264,35 @@ def flatten_rows_cache(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
     return k, v
 
 
+def _lineage_context(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, ks: torch.Tensor,
+                     vs: torch.Tensor, prefix_bias: torch.Tensor, sb: torch.Tensor,
+                     nb: int) -> torch.Tensor:
+    """Lineage attention of one layer: q [B*nb, H, 1, hd] over the prefix
+    kp, vp [B, H, Pc, hd] and all nb suffix rows of each request ks, vs
+    [B*nb, H, Sc, hd], under prefix_bias [B, 1, 1, Pc] and the lineage mask
+    sb [B, nb_q, nb_kv, 1, Sc].  Prefix and suffix scores join one fp32
+    softmax, prefix first.  Returns the context [B*nb, H, 1, hd] in q's type."""
+    Bnb, H, _, hd = q.shape
+    B = Bnb // nb
+    Sc = ks.shape[2]
+    cd = q.dtype
+    kp, vp = kp.to(cd).float(), vp.to(cd).float()
+    ks = ks.to(cd).float().view(B, nb, H, Sc, hd)
+    vs = vs.to(cd).float().view(B, nb, H, Sc, hd)
+    qh = q[:, :, 0, :].float().view(B, nb, H, hd)
+    scale = 1.0 / math.sqrt(hd)
+    sp = torch.einsum("bnhd,bhpd->bnhp", qh, kp) * scale + prefix_bias
+    ss = torch.einsum("bnhd,bmhsd->bnmhs", qh, ks) * scale + sb
+    Pc = sp.shape[-1]
+    flat = torch.cat([sp, ss.permute(0, 1, 3, 2, 4).reshape(B, nb, H, nb * Sc)], dim=-1)
+    probs = torch.softmax(flat, dim=-1)
+    pp = probs[..., :Pc].to(cd).float()
+    ps = probs[..., Pc:].to(cd).float().view(B, nb, H, nb, Sc)
+    ctx = (torch.einsum("bnhp,bhpd->bnhd", pp, vp)
+           + torch.einsum("bnhms,bmhsd->bnhd", ps, vs))
+    return ctx.reshape(Bnb, H, 1, hd).to(cd)
+
+
 def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KVCache,
                         prefix_bias: torch.Tensor, suffix: KVCache, suffix_bias: torch.Tensor,
                         step: int, size: GPT2Size, nb: int) -> Tuple[torch.Tensor, KVCache]:
@@ -280,33 +309,46 @@ def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KV
     hidden [B*nb, 1, D]; prefix_bias [B, 1, 1, Pc]; this token's K/V is
     written at suffix slot step-1 of each row's own suffix, in place.
     Returns (ln_f output [B*nb, 1, D], suffix)."""
-    Bnb = hidden.shape[0]
-    B = Bnb // nb
-    Sc = suffix.k.shape[3]
-    H, hd = size.heads, size.head_dim
     sb = suffix_bias[:, :, :, None, :]              # [B, nbq, nbk, 1, Sc] (over H)
-    scale = 1.0 / math.sqrt(hd)
     for l in range(size.layers):
         def attend(q, k, v, l=l):
             # q, k, v [B*nb, H, 1, hd]
             suffix.k[l, :, :, step - 1] = k[:, :, 0].to(suffix.k.dtype)
             suffix.v[l, :, :, step - 1] = v[:, :, 0].to(suffix.v.dtype)
-            cd = q.dtype
-            kp, vp = prefix.k[l].to(cd).float(), prefix.v[l].to(cd).float()   # [B,H,Pc,hd]
-            ks = suffix.k[l].to(cd).float().view(B, nb, H, Sc, hd)
-            vs = suffix.v[l].to(cd).float().view(B, nb, H, Sc, hd)
-            qh = q[:, :, 0, :].float().view(B, nb, H, hd)
-            sp = torch.einsum("bnhd,bhpd->bnhp", qh, kp) * scale + prefix_bias
-            ss = torch.einsum("bnhd,bmhsd->bnmhs", qh, ks) * scale + sb
-            Pc = sp.shape[-1]
-            flat = torch.cat([sp, ss.permute(0, 1, 3, 2, 4).reshape(B, nb, H, nb * Sc)],
-                             dim=-1)
-            probs = torch.softmax(flat, dim=-1)
-            pp = probs[..., :Pc].to(cd).float()
-            ps = probs[..., Pc:].to(cd).float().view(B, nb, H, nb, Sc)
-            ctx = (torch.einsum("bnhp,bhpd->bnhd", pp, vp)
-                   + torch.einsum("bnhms,bmhsd->bnhd", ps, vs))
-            return ctx.reshape(Bnb, H, 1, hd).to(cd)
+            return _lineage_context(q, prefix.k[l], prefix.v[l], suffix.k[l], suffix.v[l],
+                                    prefix_bias, sb, nb)
+
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return out, suffix
+
+
+def decode_step_lineage_rows(params: Dict[str, Any], hidden: torch.Tensor, prefix: KVCache,
+                             prefix_bias: torch.Tensor, suffix: KVCache,
+                             suffix_bias: torch.Tensor, positions: torch.Tensor,
+                             size: GPT2Size, nb: int) -> Tuple[torch.Tensor, KVCache]:
+    """`decode_step_lineage` with a suffix write position per row: the beam
+    pool's step (serve/beam_pool.py), where each beam group sits at its own
+    offset.  The attention is `decode_step_lineage`'s, op for op, so a pool
+    group's step equals the dedicated decode's.
+
+    hidden [B*nb, 1, D]; positions [B*nb]: row b's K/V is written at suffix
+    slot positions[b], in place.  A row whose position is Sc or more
+    (a frozen group parked at Sc) writes nothing: its slot keeps its value,
+    as the JAX package's drop-mode scatter leaves it.  Returns (ln_f output
+    [B*nb, 1, D], suffix)."""
+    Sc = suffix.k.shape[3]
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    keep = (positions < Sc)[:, None, None]
+    pos = positions.clamp(max=Sc - 1).long()
+    sb = suffix_bias[:, :, :, None, :]
+    for l in range(size.layers):
+        def attend(q, k, v, l=l):
+            for cache, new in ((suffix.k[l], k), (suffix.v[l], v)):
+                cache[rows, :, pos] = torch.where(keep, new[:, :, 0].to(cache.dtype),
+                                                  cache[rows, :, pos])
+            return _lineage_context(q, prefix.k[l], prefix.v[l], suffix.k[l], suffix.v[l],
+                                    prefix_bias, sb, nb)
 
         hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
     out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])

@@ -1,6 +1,6 @@
 """Dependency-free synthesis server over the stdlib http.server
 (counterpart of indextts_tpu/serve/httpd.py; the FastAPI server is ROADMAP
-item A12b).  The engine runs on `cuda` unless the caller passes
+item A12c).  The engine runs on `cuda` unless the caller passes
 device="cpu" to `TTSService`, `serve` or `main`.
 
   GET  /health                     → {"status": "ok", ...}
@@ -21,9 +21,11 @@ GET /ui serves the static browser player.
 Without --continuous, /tts with mode "fast" (the default) runs
 `infer_fast` (sentence buckets of `sentences_bucket_max_size`, default 4),
 mode "normal" or a speaker_id `infer`, and /tts_stream `infer_stream`.
-Paths not ported yet raise NotImplementedError naming their ROADMAP item,
-which the handler answers with a 500: num_beams=3 in continuous mode (the
-beam pool, A12b) and checkpoint loading (A1b).
+With --continuous, requests join the shared sampling pool, or at
+num_beams=3 (the reference client's default) the shared beam pool
+(serve/beam_pool.py), one per do_sample mode.  The engine loads
+`--gpt_path` and `--speaker_info_path` as the reference does, and
+/model/reload swaps the GPT checkpoint while serving.
 """
 
 from __future__ import annotations
@@ -91,9 +93,6 @@ class TTSService:
         if continuous and tp and tp > 1:
             raise ValueError("--continuous and --tp are mutually exclusive "
                              "(the decode pool is single-card)")
-        if beam_pool_kwargs:
-            raise NotImplementedError("the continuous beam pool (--pool-beam-groups) is "
-                                      "ROADMAP item A12b")
         self.cfg_path = cfg_path
         self.model_dir = model_dir
         self.gpt_path = gpt_path
@@ -105,7 +104,10 @@ class TTSService:
         self.continuous = continuous
         self._pool_kwargs = pool_kwargs or {}
         self._pool = None
-        self._pool_thread = None
+        self._beam_pool_kwargs = beam_pool_kwargs or {}
+        # beam pools keyed by do_sample (fixed per pool), built at the first
+        # num_beams=BEAM_NB request
+        self._beam_pools: Dict[bool, Any] = {}
         self.warmup_pool = warmup_pool
         self._closing = threading.Event()
         self._threads: list = []  # every drive thread ever started
@@ -127,11 +129,33 @@ class TTSService:
                     # build and first-use setup stay off the first request
                     pool.warmup()
                 self._pool = pool
-                self._pool_thread = threading.Thread(
-                    target=self._drive_pool, args=(pool,), daemon=True)
-                self._pool_thread.start()
-                self._threads.append(self._pool_thread)
+                self._start_drive(pool)
             return self._pool
+
+    def beam_pool(self, do_sample: bool = True):
+        """The shared continuous beam pool for num_beams=BEAM_NB requests of
+        this do_sample mode, each with its own drive thread (joined by
+        close())."""
+        with self._lock:
+            if self._closing.is_set():
+                raise RuntimeError("TTSService is closed")
+            pool = self._beam_pools.get(do_sample)
+            if pool is None:
+                kw = dict(self._beam_pool_kwargs)
+                kw.setdefault("num_groups", 2)
+                pool = self.engine().create_beam_batcher(num_beams=self.BEAM_NB,
+                                                         do_sample=do_sample, **kw)
+                self.engine().enable_vocode_batching()
+                if self.warmup_pool:
+                    pool.warmup()
+                self._beam_pools[do_sample] = pool
+                self._start_drive(pool)
+            return pool
+
+    def _start_drive(self, pool) -> None:
+        t = threading.Thread(target=self._drive_pool, args=(pool,), daemon=True)
+        t.start()
+        self._threads.append(t)
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop and JOIN every drive thread, then drop the pool and engine.
@@ -144,7 +168,7 @@ class TTSService:
         with self._lock:
             threads, self._threads = self._threads, []
             self._pool = None
-            self._pool_thread = None
+            self._beam_pools = {}
             tts, self._tts = self._tts, None
         if tts is not None:
             tts.disable_vocode_batching()  # stop + join the coordinator
@@ -167,31 +191,53 @@ class TTSService:
                 continue
             idle = live == 0 and not pool._queue
             if idle:
-                if self._pool is not pool:
-                    return  # replaced and fully drained
+                if self._pool is not pool and pool not in self._beam_pools.values():
+                    return  # replaced by reload() and fully drained
                 if self._closing.wait(0.002):
                     return
 
     def engine(self) -> IndexTTS:
         with self._lock:
             if self._tts is None:
-                if self.gpt_path or self.speaker_info_path:
-                    raise NotImplementedError("loading checkpoints and speaker data is "
-                                              "ROADMAP item A1b")
                 if self.tp and self.tp > 1:
                     raise NotImplementedError("tensor-parallel inference (--tp) is ROADMAP "
                                               "item A16")
                 cfg = self.cfg_path if self.cfg_path and os.path.exists(self.cfg_path) \
                     else None
                 self._tts = IndexTTS(cfg_path=cfg, model_dir=self.model_dir,
-                                     device=self.device)
+                                     device=self.device, gpt_path=self.gpt_path,
+                                     speaker_info_path=self.speaker_info_path)
             return self._tts
 
     def models(self) -> Dict[str, Any]:
         return discover_models(self.model_dir, self.gpt_path)
 
     def reload(self, gpt_path: str) -> Dict[str, Any]:
-        raise NotImplementedError("loading a checkpoint is ROADMAP item A1b")
+        """Swap the GPT checkpoint: the next request builds a new engine from
+        it, and new pools over that engine.  The old engine's vocode
+        coordinator is joined and both pools are dropped: their drive threads
+        finish what they hold, then exit, so no reference to the old
+        engine's weights remains."""
+        # the reference's resolution order (api.py:126-133): relative to
+        # model_dir first, then the path as given, so every "filename" that
+        # /models lists resolves here
+        candidates = ([gpt_path] if os.path.isabs(gpt_path)
+                      else [os.path.join(self.model_dir, gpt_path), gpt_path])
+        resolved = next((p for p in candidates if os.path.exists(p)), None)
+        if resolved is None:
+            raise FileNotFoundError(candidates[0])
+        resolved = os.path.abspath(resolved)   # IndexTTS joins relative paths with model_dir
+        if os.path.isdir(resolved):    # refused before the serving engine is dropped
+            raise NotImplementedError(f"{resolved} is a directory: native checkpoint "
+                                      "directories are ROADMAP item A14")
+        with self._lock:
+            self.gpt_path = resolved
+            old_tts, self._tts = self._tts, None
+            if old_tts is not None:
+                old_tts.disable_vocode_batching()
+            self._pool = None
+            self._beam_pools = {}
+        return {"status": "reloaded", "gpt_path": resolved}
 
     @staticmethod
     def parse_request(req: Dict[str, Any]):
@@ -245,8 +291,10 @@ class TTSService:
         requested knob is never ignored silently):
 
           * num_beams == 3 (the reference API's hardcoded default,
-            api.py:253) needs the continuous beam pool, not ported yet
-            (ROADMAP item A12b): NotImplementedError.
+            api.py:253) → the continuous beam pool, with this request's
+            temperature / top_p / repetition_penalty / length_penalty /
+            seed.  Its top_k is fixed per pool: another top_k is declared
+            via X-Top-K-Effective.
           * other num_beams > 1 values → the sampling pool, declared via
             X-Num-Beams-Effective: 1 (the pool has one beam width; 3 is
             the only value reference clients send).
@@ -264,8 +312,13 @@ class TTSService:
         nb = int(gen.get("num_beams", 1))
         do_sample = bool(gen["do_sample"])
         if nb == self.BEAM_NB:
-            raise NotImplementedError("num_beams=3 in --continuous mode needs the "
-                                      "continuous beam pool (ROADMAP item A12b)")
+            pool = self.beam_pool(do_sample)
+            sampling = dict(temperature=float(gen["temperature"]), top_p=float(gen["top_p"]),
+                            repetition_penalty=float(gen["repetition_penalty"]),
+                            length_penalty=float(gen.get("length_penalty", 0.0)))
+            if do_sample and int(gen["top_k"]) != pool.top_k:
+                headers["X-Top-K-Effective"] = str(pool.top_k)
+            return pool, sampling, max_mel, headers
         if nb > 1:
             headers["X-Num-Beams-Effective"] = "1"
         sampling = dict(
@@ -561,7 +614,7 @@ def add_pool_args(p) -> None:
                         "over the first N local devices (--continuous)")
     p.add_argument("--pool-beam-groups", type=int, default=None,
                    help="beam-pool groups for concurrent num_beams=3 requests "
-                        "(--continuous; not ported: ROADMAP item A12b)")
+                        "(--continuous; default 2)")
 
 
 def pool_kwargs_from_args(args) -> Optional[Dict[str, Any]]:
@@ -606,6 +659,11 @@ def main(argv=None, device: Optional[str] = None) -> None:
     p.add_argument("--model_dir", default="checkpoints")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7859)
+    p.add_argument("--gpt_path", default=None,
+                   help="GPT checkpoint (.pth), absolute or relative to --model_dir "
+                        "(default: the config's gpt_checkpoint there)")
+    p.add_argument("--speaker_info_path", default=None,
+                   help="speaker_info.json of the speakers that speaker_id may name")
     p.add_argument("--continuous", action="store_true",
                    help="cross-request continuous-batching decode pool")
     add_pool_args(p)
@@ -617,6 +675,7 @@ def main(argv=None, device: Optional[str] = None) -> None:
                         "ROADMAP item A16)")
     args = p.parse_args(argv)
     httpd = serve(args.config, args.model_dir, args.host, args.port,
+                  gpt_path=args.gpt_path, speaker_info_path=args.speaker_info_path,
                   continuous=args.continuous, tp=args.tp,
                   pool_kwargs=pool_kwargs_from_args(args),
                   beam_pool_kwargs=(

@@ -714,7 +714,9 @@ class ContinuousBatcher:
         with self._on_device():
             self._apply_cancellations()
             self._admit()
-            if not self._live:
+            # with requests queued but none live (every occupant cancelled),
+            # the tick still runs: its report frees the slots for them
+            if not self._live and not self._queue:
                 self.flush()
                 return 0
             steps = self._tick_steps()

@@ -164,15 +164,44 @@ def test_default_infer_returns_a_wav(engines):
     assert teng.last_stats["decode_steps"] >= 1
 
 
-def test_unported_options_raise(engines):
+@pytest.mark.parametrize("option", ["infer speaker_id", "infer_fast speaker_id",
+                                    "infer_stream speaker_id", "gpt_path directory"])
+def test_unported_options_raise(engines, option, tmp_path, monkeypatch):
+    """The options once refused: speaker_id with no prompt synthesises from
+    the checkpoint's speaker data (an id the engine does not hold raises
+    ValueError, as in JAX), and a gpt_path that is a directory (a native
+    checkpoint, ROADMAP item A14) still raises."""
     _, teng, d = engines
-    prompt = str(d / "prompt.wav")
-    with pytest.raises(NotImplementedError, match="A1b"):
-        teng.infer(prompt, "你好。", None, speaker_id="someone")
-    with pytest.raises(NotImplementedError, match="A1b"):
-        teng.infer_fast(prompt, "你好。", None, speaker_id="someone")
-    with pytest.raises(NotImplementedError, match="A1b"):
-        teng.infer_stream(prompt, "你好。", speaker_id="someone")
+    if option == "gpt_path directory":
+        with pytest.raises(NotImplementedError, match="A14"):
+            torch_engine.IndexTTS(cfg_path=str(d / "config.yaml"), model_dir=str(d),
+                                  device="cpu", gpt_path=str(tmp_path))
+        return
+    method = option.split()[0]
+
+    def synthesise():
+        if method == "infer_stream":
+            return np.concatenate([c for _, c in teng.infer_stream(
+                None, "你好。", speaker_id="spk", seed=1, **GEN)])
+        return getattr(teng, method)(None, "你好。", None, speaker_id="spk", seed=1, **GEN)[1]
+
+    with pytest.raises(ValueError, match="speaker_id"):
+        synthesise()
+    rng = np.random.default_rng(0)
+    monkeypatch.setattr(teng, "speaker_conditions", {"spk": rng.standard_normal(
+        (1, 32, teng.cfg.gpt.model_dim)).astype(np.float32)})
+    monkeypatch.setattr(teng, "speaker_mels", {"spk": rng.standard_normal(
+        (teng.cfg.bigvgan.num_mels, 120)).astype(np.float32)})
+    monkeypatch.setattr(teng, "speaker_list", ["spk"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        wav = synthesise()
+    assert wav.dtype == np.int16 and wav.size == sum(teng.last_stats["code_lens"]) * 1024 > 0
+    with pytest.raises(ValueError, match="invalid speaker_id"):
+        if method == "infer_stream":
+            teng.infer_stream(None, "你好。", speaker_id="other")
+        else:
+            getattr(teng, method)(None, "你好。", None, speaker_id="other")
 
 
 def test_guided_infer_matches_jax(engines, tmp_path):
@@ -219,7 +248,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
             "indextts_tpu_torch.cli, indextts_tpu_torch.ops.beam, "
             "indextts_tpu_torch.ops.quantization, indextts_tpu_torch.ops.cuda.permute, "
             "indextts_tpu_torch.ops.cuda.decode_layer, indextts_tpu_torch.ops.cuda.pool_trunk, "
-            "indextts_tpu_torch.serve.scheduler, indextts_tpu_torch.serve.httpd; "
+            "indextts_tpu_torch.serve.scheduler, indextts_tpu_torch.serve.httpd, "
+            "indextts_tpu_torch.serve.beam_pool, indextts_tpu_torch.io.checkpoint, "
+            "indextts_tpu_torch.io.export; "
             "new = set(sys.modules) - before; "
             "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
             "'indextts_tpu')))")

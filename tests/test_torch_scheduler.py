@@ -92,6 +92,34 @@ def test_pool_greedy_codes_equal_the_jax_pool_and_single_decode(setup, mode):
         np.testing.assert_array_equal(res[rid], want, err_msg=f"request {rid}")
 
 
+@pytest.mark.parametrize("staging_rows", [0, 2])
+def test_cancelling_every_occupant_frees_the_slots(setup, staging_rows):
+    """Every live request cancelled while others queue: the pool still runs
+    a tick, whose report frees the slots, so the queued requests are served
+    (with none live, the pool would otherwise wait forever on slots its last
+    report showed busy)."""
+    *_, texts, pool_codes, _ = setup
+    order = [1, 2, 4, 5, 0, 3]    # the first four run to their budget
+    b = _pool(setup, steps_per_tick=2, staging_rows=staging_rows)
+    ids = {b.submit(texts[i], max_new=MAX_NEW): i for i in order}
+    b.step()
+    live = [r.req_id for r in b._live.values()]
+    assert len(live) == 2 + staging_rows and b._queue
+    for rid in live:
+        b.cancel(rid)
+    res = {}
+    for req in b._queue:
+        req.done_cb = res.__setitem__
+    for _ in range(100):          # bounded: a stalled pool fails, not hangs
+        if not (b._queue or b._live):
+            break
+        b.step()
+    b.flush()
+    assert set(res) == set(ids) - set(live)
+    for rid in res:
+        np.testing.assert_array_equal(res[rid], pool_codes[ids[rid]])
+
+
 def test_fused_trunk_refuses_what_the_kernel_does_not_take(setup):
     tcfg, tp, cond = setup[:3]
     with pytest.raises(ValueError, match="fused_trunk"):

@@ -1,7 +1,9 @@
 """PyTorch port, pool serving: `pool_infer` against the JAX engine's on the
 same weights, the batched vocode tail against JAX's, `pool_infer_stream`,
-the stdlib HTTP server over a socket in continuous mode and without it
-(infer_fast, infer_stream).  The tiny engine of tests/test_torch_engine.py, fp32."""
+the stdlib HTTP server over a socket in continuous mode (the sampling pool,
+and the beam pool at num_beams=3) and without it (infer_fast,
+infer_stream, /model/reload), and --pool-beam-groups.  The tiny engine of
+tests/test_torch_engine.py, fp32."""
 
 import http.client
 import json
@@ -14,12 +16,17 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+import jax
 import jax.numpy as jnp
 
 from indextts_tpu import engine as jax_engine
+from indextts_tpu.models import unified_voice as jax_uv
 from indextts_tpu_torch import engine as torch_engine
+from indextts_tpu_torch.io import from_jax
+from indextts_tpu_torch.io.export import save_gpt_pth
 from indextts_tpu_torch.serve import httpd
 from tests.test_torch_engine import build_engines, model  # noqa: F401  (fixture)
+from tests.test_torch_gpt import numpy_params
 
 TEXT = "今天天气很好。我们去散步吧。"
 POOL = dict(num_slots=2, max_text_width=32, max_new=12, do_sample=False,
@@ -136,8 +143,13 @@ def test_create_batcher_defaults(engines):
     assert b.S == 2 and b.K == 2 and b.max_new == 8
     with pytest.raises(ValueError, match="dp=2"):
         teng.create_batcher(dp=2)
-    with pytest.raises(NotImplementedError, match="A1b"):
+    # a speaker the engine holds no condition for (none: random weights)
+    with pytest.raises(ValueError, match="unknown speaker_id"):
         teng.create_batcher(speaker_id="someone")
+    b = teng.create_beam_batcher(num_groups=2)
+    assert b.steps_per_tick == 1 and b.nb == 3 and b.G == 2 and b.top_k == 30
+    assert b.cache_dtype == torch.float32 and b.state.suffix.k.dtype == torch.float32
+    assert b.max_new == teng.cfg.gpt.max_mel_tokens
 
 
 def _server(engine, **kw):
@@ -166,7 +178,8 @@ def _wav(data):
 def test_http_server_continuous_mode(engines, tmp_path):
     _, teng, prompt, _ = engines
     server = _server(teng, continuous=True,
-                     pool_kwargs=dict(num_slots=2, max_text_width=32, max_new=8))
+                     pool_kwargs=dict(num_slots=2, max_text_width=32, max_new=8),
+                     beam_pool_kwargs=dict(max_text_width=32, max_new=8))
     try:
         conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
         conn.request("GET", "/health")
@@ -192,19 +205,39 @@ def test_http_server_continuous_mode(engines, tmp_path):
         assert np.abs(streamed - samples.astype(np.int32)).max() <= 1
         status, _, body = _post(server, "/tts", {"text": TEXT})
         assert status == 400 and b"audio_path" in body
-        status, _, body = _post(server, "/tts", {**req, "num_beams": 3})
-        assert status == 500 and b"A12b" in body
+        # num_beams=3 (the reference client's default) goes to the beam pool:
+        # greedy, its wav is the dedicated beam-3's (the pool vocodes the two
+        # sentences together, infer one by one: within one int16 step)
+        status, headers, data = _post(server, "/tts", {**req, "num_beams": 3,
+                                                      "do_sample": False})
+        assert status == 200 and "X-Top-K-Effective" not in headers
+        _, pooled = _wav(data)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, want = teng.infer(prompt, TEXT, None, num_beams=3, do_sample=False,
+                                 max_mel_tokens=8, repetition_penalty=10.0,
+                                 max_text_tokens_per_sentence=20)
+        assert pooled.shape == want[:, 0].shape
+        assert np.abs(pooled.astype(np.int32) - want[:, 0].astype(np.int32)).max() <= 1
+        # sampled beam-3 with another top_k than the pool's: declared
+        status, headers, data = _post(server, "/tts", {**req, "num_beams": 3, "top_k": 20})
+        assert status == 200 and headers["X-Top-K-Effective"] == "30"
+        assert _wav(data)[0] == 24000
+        assert set(server.service._beam_pools) == {False, True}
     finally:
         server.shutdown()
 
 
-def test_http_server_routes_not_ported_yet(engines):
+def test_http_server_routes_not_ported_yet(engines, tmp_path):
     """Non-continuous: /tts with no mode runs infer_fast (the reference's
     serving default, beam-3), /tts_stream runs infer_stream, and
     mode="normal" runs infer, each answering a 24 kHz int16 wav over the
-    socket; /model/reload still names ROADMAP item A1b."""
-    _, teng, prompt, _ = engines
-    server = _server(teng)
+    socket; /model/reload swaps in another gpt.pth, and the next request
+    is the wav of an engine built from that file."""
+    _, teng, prompt, d = engines
+    server = httpd.serve(str(d / "config.yaml"), str(d), host="127.0.0.1", port=0,
+                         engine_instance=teng, device="cpu")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
     try:
         req = {"text": "你好。明天见。", "audio_path": prompt, "max_mel_tokens": 4, "seed": 1}
         with warnings.catch_warnings():
@@ -221,22 +254,55 @@ def test_http_server_routes_not_ported_yet(engines):
             status, headers, data = _post(server, "/tts", {**req, "mode": "normal",
                                                            "num_beams": 1})
         assert status == 200 and _wav(data)[0] == 24000
-        status, _, data = _post(server, "/model/reload", {"gpt_path": "gpt.pth"})
-        assert status == 500 and b"A1b" in data
+        status, _, data = _post(server, "/model/reload", {"gpt_path": "missing.pth"})
+        assert status == 404
+        pth = str(tmp_path / "other_gpt.pth")
+        other = numpy_params(jax.eval_shape(lambda: jax_uv.init_params(
+            jax.random.PRNGKey(0), teng.cfg.gpt)), 7, lambda s: 1.0 / np.sqrt(s[-2]))
+        save_gpt_pth(pth, from_jax.gpt_params_from_numpy(other, teng.cfg.gpt), teng.cfg.gpt,
+                     save_dtype="fp32")
+        status, _, data = _post(server, "/model/reload", {"gpt_path": pth})
+        assert status == 200 and json.loads(data) == {"status": "reloaded", "gpt_path": pth}
+        normal = {**req, "mode": "normal", "num_beams": 1, "do_sample": False}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            status, _, data = _post(server, "/tts", normal)
+            fresh = torch_engine.IndexTTS(cfg_path=str(d / "config.yaml"), model_dir=str(d),
+                                          device="cpu", gpt_path=pth)
+            _, want = fresh.infer(prompt, normal["text"], None, num_beams=1, do_sample=False,
+                                  max_mel_tokens=4, seed=1, temperature=0.3,
+                                  repetition_penalty=10.0, length_penalty=0.0)
+        assert server.service._tts is not teng and server.service._tts.gpt_path == pth
+        assert status == 200 and np.array_equal(_wav(data)[1], want[:, 0])
     finally:
         server.shutdown()
 
 
-def test_beam_pool_option_names_its_roadmap_item(engines):
-    """--pool-beam-groups sizes the continuous beam pool, which is not
-    ported: the command line and the service refuse it."""
+def test_beam_pool_option_names_its_roadmap_item(engines, monkeypatch):
+    """--pool-beam-groups sizes the continuous beam pool: the command line
+    starts a server whose beam pool has that many groups of three beams,
+    and the service takes the option."""
     _, _, _, d = engines
-    with pytest.raises(NotImplementedError, match="A12b"):
+    seen = {}
+
+    def serve_once(server):   # in place of the blocking loop: build the pool, return
+        pool = server.service.beam_pool(True)
+        seen.update(groups=pool.G, beams=pool.nb, continuous=server.service.continuous)
+
+    monkeypatch.setattr(httpd.TTSHTTPServer, "serve_forever", serve_once)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
         httpd.main(["--continuous", "--pool-beam-groups", "2", "--host", "127.0.0.1",
-                    "--port", "0", "--model_dir", str(d)], device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        httpd.TTSService(str(d / "config.yaml"), str(d), continuous=True,
-                         beam_pool_kwargs={"num_groups": 2}, device="cpu")
+                    "--port", "0", "--config", str(d / "config.yaml"), "--model_dir", str(d)],
+                   device="cpu")
+        assert seen == {"groups": 2, "beams": 3, "continuous": True}
+        service = httpd.TTSService(str(d / "config.yaml"), str(d), continuous=True,
+                                   beam_pool_kwargs={"num_groups": 2}, device="cpu")
+        try:
+            pool = service.beam_pool(False)
+            assert pool.G == 2 and not pool.do_sample and service.beam_pool(False) is pool
+        finally:
+            service.close()
 
 
 def test_service_defaults_to_cuda(engines):
