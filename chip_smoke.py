@@ -90,7 +90,27 @@
    - /model/reload onto that gpt.pth while serving: the next request runs
      on the loaded weights after `IndexTTS.warmup`, and the card's
      allocated memory is within 10% of what one engine held before.
-8. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
+8. LoRA fine-tuning (`indextts_tpu_torch/train/`):
+   - the small fp32 model on the card and on the CPU: three optimizer
+     updates at gradient_accumulation_steps=2 with the clip firing, the
+     adapters within 1e-5 of each other after every micro-step; a NaN base
+     weight leaves adapters, optimizer state and step bit-equal on the card;
+     a Trainer's epochs 0 and 1 straight through equal epoch 0, a new
+     Trainer, try_resume and epoch 1 (within 1e-6);
+   - at full width (bf16 base) a Trainer at the TrainConfig defaults but
+     epochs=2 and max_steps_per_epoch=32 over synthetic manifests in the
+     extraction layout (two speakers, 256 train and 8 valid clips): every
+     loss finite, every artifact written; it prints the micro-step's median
+     ms, the optimizer update's ms, target tokens per second, the batch
+     widths, peak device memory, a model-FLOPs share and a profile of one
+     micro-step (device busy share, device ops, top ops);
+   - learning: one micro-batch of 8 with codes from 64 values, lr 1e-3, 20
+     updates, the mel loss after at most 0.9 of the first;
+   - engines on the trained gpt_finetuned.pth and on the merged directory
+     model_epoch_1: equal greedy codes for a 200-code request, qkv_w equal
+     to the bf16 merge bit for bit, a speaker_id request with no prompt
+     answers a wav; K2 once a decode step and K1 109 times a vocode.
+9. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
    ms and share of its bound; K2 and K4 one entry per tier, with
    `launches_per_call` and `gbytes_per_s`); before it, on a line of its
    own, the previous design's K2 and K4 times as PERF.md records them
@@ -217,6 +237,16 @@ def peak_flops(torch, dtype) -> float:
     type the TPU kernel multiplies in: bf16 on the tensor cores, fp32
     outside them."""
     return BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+
+
+def kernel_events(torch, events) -> list:
+    """The device kernels among a profile's averaged events.  A CPU op's
+    `self_device_time_total` repeats the time of the kernels it launched,
+    so a sum over every event counts each such kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and (e.self_device_time_total or 0) > 0]
 
 
 def check(name: str, err: float, tol: float, **extra) -> None:
@@ -1047,8 +1077,9 @@ def profile_beam_steps(torch, uv, tts, cond, tokens, mask, kw, steps: int = 40) 
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
-    busy_us = sum(dev(e) for e in events)
-    launches = sum(e.count for e in events if dev(e) > 0 and not e.key.startswith("cuda"))
+    kernels = kernel_events(torch, events)
+    busy_us = sum(dev(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
     top_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     top_dev = sorted(events, key=dev, reverse=True)[:8]
     n = max(r.steps, 1)
@@ -1293,7 +1324,7 @@ def profile_pool_steps(torch, pool, ids) -> None:
     pool.run()
     events = prof.key_averages()
     dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
-    busy_us = sum(dev(e) for e in events)
+    busy_us = sum(dev(e) for e in kernel_events(torch, events))
     top_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     top_dev = sorted(events, key=dev, reverse=True)[:8]
     emit({"phase": "pool step profile (8 slots, K4, bf16, full width)", "steps": n,
@@ -1868,8 +1899,9 @@ def _profile_ticks(torch, pool, label: str, ticks: int = 1) -> None:
     n = max(pool.step_count - n0, 1)
     events = prof.key_averages()
     dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
-    busy_us = sum(dev(e) for e in events)
-    launches = sum(e.count for e in events if dev(e) > 0 and not e.key.startswith("cuda"))
+    kernels = kernel_events(torch, events)
+    busy_us = sum(dev(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
     top_dev = sorted(events, key=dev, reverse=True)[:8]
     emit({"phase": label, "steps": n, "wall_ms_per_step": wall * 1e3 / n,
           "device_busy_ms_per_step": busy_us / 1e3 / n,
@@ -2066,6 +2098,418 @@ def reload_and_warmup(torch, engine_mod, httpd, kernels, prompt: str, gpt_pth: s
 
 
 
+# sentences for the synthetic fine-tuning manifests (English and Chinese)
+FT_SENTENCES = [
+    "The quick brown fox jumps over the lazy dog.", "The morning sun rises slowly.",
+    "An old farmer walks along the river to check on his sheep.",
+    "Please read the next line aloud and clearly.", "We will meet again tomorrow at noon.",
+    "今天天气很好，我们去散步吧。", "谢谢你的帮助。", "请再说一遍。", "明天再见。",
+    "欢迎使用语音合成。"]
+
+
+def write_finetune_data(root: str, tokenizer, rng, *, clips: int, valid: int, codes: tuple,
+                        text_tokens: tuple, width: int, speakers=("spk_a", "spk_b")) -> dict:
+    """Synthetic fine-tuning data in the extraction layout (what the data
+    loader reads): per speaker `clips` train and `valid` valid records in
+    metadata_{train,valid}.jsonl over codes/*.npy ([n], n in `codes`) and
+    mels/*.npy ([100, 4 n]), texts joined from FT_SENTENCES to a token count
+    in `text_tokens`, a medoid_condition.npy [1, 32, width] and a
+    medoid_mel.npy; speaker_info.json.  Returns counts."""
+    import numpy as np
+
+    n_tokens = []
+    for spk in speakers:
+        d = os.path.join(root, spk)
+        os.makedirs(os.path.join(d, "codes"), exist_ok=True)
+        os.makedirs(os.path.join(d, "mels"), exist_ok=True)
+        recs = {"train": [], "valid": []}
+        for i in range(clips + valid):
+            n = int(rng.integers(codes[0], codes[1] + 1))
+            np.save(os.path.join(d, "codes", f"c{i}.npy"), rng.integers(0, 8192, n))
+            np.save(os.path.join(d, "mels", f"c{i}.npy"),
+                    rng.standard_normal((100, 4 * n)).astype(np.float32))
+            text, want = "", int(rng.integers(text_tokens[0], text_tokens[1] + 1))
+            while len(tokenizer.encode(text)) < want:
+                nxt = (text + " " + FT_SENTENCES[int(rng.integers(len(FT_SENTENCES)))]).strip()
+                if len(tokenizer.encode(nxt)) > text_tokens[1]:
+                    break
+                text = nxt
+            n_tokens.append(len(tokenizer.encode(text)))
+            recs["train" if i < clips else "valid"].append({
+                "audio": f"{spk}/c{i}.wav", "text": text, "duration": n / 23.4,
+                "codes": f"codes/c{i}.npy", "mels": f"mels/c{i}.npy"})
+        for split, rs in recs.items():
+            with open(os.path.join(d, f"metadata_{split}.jsonl"), "w", encoding="utf-8") as f:
+                f.writelines(json.dumps(r, ensure_ascii=False) + "\n" for r in rs)
+        np.save(os.path.join(d, "medoid_condition.npy"),
+                rng.standard_normal((1, 32, width)).astype(np.float32))
+        np.save(os.path.join(d, "medoid_mel.npy"),
+                rng.standard_normal((100, 400)).astype(np.float32))
+    with open(os.path.join(root, "speaker_info.json"), "w") as f:
+        json.dump([{"speaker": s} for s in speakers], f)
+    return {"speakers": len(speakers), "train_clips": clips * len(speakers),
+            "valid_clips": valid * len(speakers), "text_tokens": [min(n_tokens), max(n_tokens)]}
+
+
+def _leaf_rel_err(torch, got, want) -> float:
+    """The largest max|diff| / max|want| over the leaves of two trees."""
+    if isinstance(want, dict):
+        return max(_leaf_rel_err(torch, got[k], want[k]) for k in want)
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+
+def _trees_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_trees_equal(torch, a[k], b[k]) for k in a)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def lora_small_agreement(torch, Config, TrainConfig, uv, trainer, lora) -> None:
+    """LoRA fine-tuning on the small fp32 model, on the card and on the CPU:
+    three optimizer updates at gradient_accumulation_steps=2 (six
+    micro-steps) with max_grad_norm low enough that the clip fires on every
+    one; the card's adapters within 1e-5 of each leaf's largest magnitude of
+    the CPU's after every micro-step (the reference learning rate, 5e-6:
+    Adam scales each element to about lr, so the rate bounds how far two
+    summation orders can part).  Then the true skip on the card: a NaN base
+    weight leaves adapters, optimizer state and step bit-equal."""
+    import numpy as np
+
+    cfg = Config.from_dict(SMALL_MODEL).gpt
+    tc = TrainConfig.from_dict({"gradient_accumulation_steps": 2, "max_grad_norm": 0.05,
+                                "optimizer": {"learning_rate": 5e-6}})
+    base = uv.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    start = lora.init_lora_params(g, cfg, tc.lora)
+    for ab in start.values():
+        ab["b"] = 0.05 * torch.randn(ab["b"].shape, generator=g)
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(2):
+        B, tl, cl, ml = 4, rng.integers(8, 20, 4), rng.integers(16, 40, 4), rng.integers(60, 160, 4)
+        text, codes = np.zeros((B, 20), np.int64), np.zeros((B, 40), np.int64)
+        for i in range(B):
+            text[i, :tl[i]] = rng.integers(2, 12000, tl[i])
+            codes[i, :cl[i]] = rng.integers(0, 8192, cl[i])
+        batches.append(trainer.Batch(torch.from_numpy(text), torch.from_numpy(tl),
+                                     torch.from_numpy(codes), torch.from_numpy(cl),
+                                     torch.from_numpy(rng.standard_normal((B, 100, 160))
+                                                      .astype(np.float32)),
+                                     torch.from_numpy(ml)))
+    to = lambda tree, dev: lora.tree_map(lambda x: x.to(dev), tree)  # noqa: E731
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = trainer.make_optimizer(tc, 3)
+        adapters = to(start, dev)
+        state = trainer.TrainState(adapters, opt.init(adapters),
+                                   torch.zeros((), dtype=torch.int32, device=dev))
+        b_dev, seen = to(base, dev), []
+        for i in range(6):
+            state, m = trainer.train_step(state, b_dev, trainer.Batch(
+                *(x.to(dev) for x in batches[i % 2])), cfg, tc.lora, opt, tc.text_weight)
+            seen.append((to(state.lora_params, "cpu"), float(m["grad_norm"])))
+        runs[dev] = (seen, state, b_dev, opt)
+    err = max(_leaf_rel_err(torch, c[0], p[0]) for c, p in zip(runs["cuda"][0], runs["cpu"][0]))
+    norms = [n for _, n in runs["cuda"][0]]
+    check("lora small model, 3 updates at accumulation 2, card vs CPU (relative to each "
+          "leaf's largest magnitude)", err, 1e-5, grad_norms=norms,
+          max_grad_norm=tc.max_grad_norm)
+    if min(norms) <= 10 * tc.max_grad_norm:
+        raise SmokeFailure(f"lora small model: the clip did not fire ({norms})")
+    _, state, b_dev, opt = runs["cuda"]
+    bad = lora.tree_map(lambda x: x.clone(), b_dev)
+    bad["gpt"]["blocks"]["mlp"]["fc_w"][0, 3, 5] = float("nan")
+    after, m = trainer.train_step(state, bad, trainer.Batch(*(x.cuda() for x in batches[0])),
+                                  cfg, tc.lora, opt, tc.text_weight)
+    kept = (_trees_equal(torch, after.lora_params, state.lora_params)
+            and _trees_equal(torch, after.opt_state, state.opt_state)
+            and int(after.step) == int(state.step) and float(m["skipped"]) == 1.0)
+    emit({"check": "lora small model, non-finite loss on the card is a true skip",
+          "loss": float(m["loss"]), "skipped": float(m["skipped"]), "ok": kept})
+    if not kept:
+        raise SmokeFailure("lora small model: a non-finite step moved the state")
+
+
+def lora_small_resume(torch, Config, run_mod, tokenizer, out_dir: str) -> None:
+    """The small fp32 model's Trainer on the card over synthetic manifests:
+    epochs 0 and 1 straight through against a run interrupted as epoch 1
+    begins, a new Trainer, try_resume and epoch 1: adapters within 1e-6."""
+    import numpy as np
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(dir=out_dir, prefix="lora_small_")
+    data = os.path.join(root, "data")
+    write_finetune_data(data, tokenizer, np.random.default_rng(3), clips=12, valid=2,
+                        codes=(24, 60), text_tokens=(10, 40), width=128)
+    cfg = Config.from_dict({**SMALL_MODEL, "train": {
+        "finetune_model_dir": os.path.join(root, "out"), "data_path": data, "epochs": 2,
+        "batch_size": 8, "gradient_accumulation_steps": 2, "max_steps_per_epoch": 4,
+        "mixed_precision": "fp32", "save_dtype": "fp32", "early_stopping_patience": 5,
+        "optimizer": {"learning_rate": 1e-4}}})
+    model_dir = os.path.join(HERE, "checkpoints_test")
+    straight = run_mod.Trainer(cfg, model_dir, run_name="straight", device="cuda")
+    straight.train()
+
+    class Interrupted(Exception):
+        pass
+
+    def stop_at_epoch_1(epoch):
+        if epoch == 1:
+            raise Interrupted
+        set_epoch(epoch)
+
+    first = run_mod.Trainer(cfg, model_dir, run_name="resumed", device="cuda")
+    set_epoch, first.loader.set_epoch = first.loader.set_epoch, stop_at_epoch_1
+    try:
+        first.train()
+        raise SmokeFailure("lora resume: the interrupted run did not stop")
+    except Interrupted:
+        first.close()
+    resumed = run_mod.Trainer(cfg, model_dir, run_name="resumed", device="cuda")
+    resumed.try_resume()
+    resumed.train()
+    err = _leaf_rel_err(torch, resumed.state.lora_params, straight.state.lora_params)
+    check("lora small model Trainer on the card: resumed at epoch 1 vs straight (relative)",
+          err, 1e-6, step=int(resumed.state.step), start_epoch=resumed.start_epoch)
+    if resumed.start_epoch != 1 or int(resumed.state.step) != int(straight.state.step):
+        raise SmokeFailure(f"lora resume: start_epoch {resumed.start_epoch}, step "
+                           f"{int(resumed.state.step)} vs {int(straight.state.step)}")
+    shutil.rmtree(root)
+
+
+def train_step_flops(B: int, Tt: int, Tm: int, gpt) -> float:
+    """Model FLOPs of one micro-step through the frozen trunk: forward plus
+    the activation backward of every product (2 x 2 x rows x weights: the
+    24 layers' 12 D^2 over every position, the text and mel heads over their
+    stream's positions), plus attention over the full T x T square (4 T^2 D
+    forward, 8 T^2 D backward, per row and layer).  Excluded: the recomputed
+    forward, the frozen weights' gradients that the fold's backward forms,
+    and the conditioning encoder (no gradient)."""
+    D, L = gpt.model_dim, gpt.layers
+    T = gpt.condition_num_latent + (Tt + 2) + (Tm + 2)
+    trunk = 2 * 2 * B * T * 12 * L * D * D
+    heads = 2 * 2 * B * ((Tt + 2) * D * (gpt.number_text_tokens + 1)
+                         + (Tm + 2) * D * gpt.number_mel_codes)
+    return trunk + heads + 12 * B * L * T * T * D
+
+
+def lora_finetune(torch, engine_mod, kernels, prompt: str, out_dir: str) -> dict:
+    """LoRA fine-tuning: the small-model checks, then at full width (24
+    layers, 1280 wide, 20 heads, a bf16 base) a Trainer over synthetic
+    manifests (two speakers, 128 train and 4 valid clips each, 150-450 codes
+    and 20-120 text tokens a clip) at the TrainConfig defaults but epochs=2
+    and max_steps_per_epoch=32: micro-batches of 8, 16 to an update, so 2
+    updates an epoch.  Every loss finite, every artifact written.  Then
+    learning (one micro-batch of 8 with codes from 64 values, accumulation 1,
+    lr 1e-3: the mel loss after 20 updates at most 0.9 of the first), and
+    serving what was trained: engines on gpt_finetuned.pth and on the merged
+    directory model_epoch_1 give equal greedy codes for a 200-code request,
+    their qkv_w equal to lora.merge in bf16 bit for bit, and a speaker_id
+    request with no prompt answers a wav (K2 once a decode step, K1 109
+    times a vocode).  Returns the launches by kernel over the served
+    requests."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from scipy.io import wavfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.config import Config, TrainConfig
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.train import lora, run as run_mod, trainer
+    from indextts_tpu_torch.utils.textnorm import TextNormalizer
+    from indextts_tpu_torch.utils.tokenizer import TextTokenizer
+
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(HERE, "checkpoints_test")
+    tokenizer = TextTokenizer(os.path.join(model_dir, "vocab.txt"), TextNormalizer())
+    lora_small_agreement(torch, Config, TrainConfig, uv, trainer, lora)
+    lora_small_resume(torch, Config, run_mod, tokenizer, out_dir)
+
+    root = tempfile.mkdtemp(dir=out_dir, prefix="lora_full_")
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    counts = write_finetune_data(data, tokenizer, np.random.default_rng(4), clips=128,
+                                 valid=4, codes=(150, 450), text_tokens=(20, 120), width=1280)
+    data_s = time.perf_counter() - t0
+    cfg = Config.from_dict({"train": {"epochs": 2, "max_steps_per_epoch": 32,
+                                      "finetune_model_dir": os.path.join(root, "out"),
+                                      "data_path": data}})
+    t = run_mod.Trainer(cfg, model_dir, run_name="full", device="cuda")
+
+    # each micro-step between two CUDA events on the stream (no sync), with
+    # its batch's widths and target tokens
+    steps = []
+    inner = trainer.train_step
+
+    def timed(state, base, batch, *args):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(state, base, batch, *args)
+        e1.record()
+        steps.append((e0, e1, batch, out[1]))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step = timed
+    t0 = time.perf_counter()
+    try:
+        t.train()
+    finally:
+        trainer.train_step = inner
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = [a.elapsed_time(b) for a, b, _, _ in steps]
+    widths = sorted({(tuple(b.text_ids.shape), tuple(b.mel_codes.shape),
+                      tuple(b.cond_mel.shape)) for _, _, b, _ in steps})
+    targets = sum(int((b.text_lengths + 1).sum() + (b.codes_lengths + 1).sum())
+                  for _, _, b, _ in steps)
+    flops = sum(train_step_flops(b.text_ids.shape[0], b.text_ids.shape[1],
+                                 b.mel_codes.shape[1], cfg.gpt) for _, _, b, _ in steps)
+    losses = torch.stack([m["loss"] for *_, m in steps]).cpu()
+    skipped = float(torch.stack([m["skipped"] for *_, m in steps]).sum())
+    names = set(os.listdir(t.out_dir))
+    want_names = {"checkpoint_epoch_0", "checkpoint_epoch_1", "model_epoch_0", "model_epoch_1",
+                  "gpt_epoch_1.pth", "gpt_epoch_2.pth", "gpt_best.pth", "gpt_finetuned.pth",
+                  "config_finetuned.yaml"}
+
+    # the optimizer update alone, on the run's adapters and state
+    grads = lora.tree_map(lambda x: torch.randn_like(x) * 1e-3, t.state.lora_params)
+    for _ in range(3):
+        t.optimizer.step(grads, t.state.opt_state, t.state.lora_params)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(20):
+        t.optimizer.step(grads, t.state.opt_state, t.state.lora_params)
+    e1.record()
+    torch.cuda.synchronize()
+    opt_ms = e0.elapsed_time(e1) / 20
+
+    # one micro-step under the profiler (its result is dropped)
+    last = steps[-1][2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        trainer.train_step(t.state, t.base_params, last, cfg.gpt, t.tc.lora, t.optimizer,
+                           t.tc.text_weight)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    events = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    launched = kernel_events(torch, events)
+    busy_us = sum(dev(e) for e in launched)
+    ops = sum(e.count for e in launched)
+    top = sorted((e for e in events if e not in launched), key=dev, reverse=True)[:10]
+    step_ms = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+    emit({"phase": "lora fine-tune, full width, bf16 base, Trainer at the TrainConfig defaults "
+                   "(epochs=2, max_steps_per_epoch=32)", "card": card_line(),
+          "data": counts, "data_s": data_s, "micro_steps": len(steps),
+          "updates": int(t.state.opt_state["count"]), "micro_batch": t.loader.batch_size,
+          "accumulation": t.accum_steps, "train_s": train_s,
+          "micro_step_ms_median": step_ms, "micro_step_ms_first": ms[0],
+          "micro_step_ms_min_max": [min(ms), max(ms)],
+          "optimizer_update_ms": opt_ms,
+          "target_tokens_per_s": targets / (sum(ms) / 1e3),
+          "batch_widths_text_codes_cond": [list(w) for w in widths],
+          "peak_mem_gib": peak_gib,
+          "model_flops_share_bf16_peak": flops / (sum(ms) / 1e3) / BF16_FLOPS,
+          "model_tflops": flops / (sum(ms) / 1e3) / 1e12,
+          "losses_first_last": [float(losses[0]), float(losses[-1])], "skipped": skipped,
+          "best_val": t.best_val, "artifacts": sorted(names & want_names)})
+    emit({"phase": "lora fine-tune micro-step profile (full width, one micro-step of 8)",
+          "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / 1e6 / wall, "device_ops": ops,
+          "top_ops_device_ms": {e.key: dev(e) / 1e3 for e in top},
+          "top_kernels_device_ms": {e.key[:80]: dev(e) / 1e3 for e in
+                                    sorted(launched, key=dev, reverse=True)[:6]}})
+    if not bool(torch.isfinite(losses).all()) or skipped or not want_names <= names \
+            or int(t.state.opt_state["count"]) != 4:
+        raise SmokeFailure(f"lora full width: losses {losses.tolist()}, skipped {skipped}, "
+                           f"missing {sorted(want_names - names)}, updates "
+                           f"{int(t.state.opt_state['count'])}")
+
+    # learning: one fixed micro-batch of 8 whose codes come from 64 values
+    rng = np.random.default_rng(5)
+    vals = rng.choice(8192, 64, replace=False)
+    B = 8
+    tl, cl, ml = rng.integers(20, 120, B), rng.integers(150, 450, B), rng.integers(600, 1800, B)
+    text, codes = np.zeros((B, 128), np.int64), np.zeros((B, 480), np.int64)
+    for i in range(B):
+        text[i, :tl[i]] = rng.integers(2, 12000, tl[i])
+        codes[i, :cl[i]] = rng.choice(vals, cl[i])
+    batch = trainer.Batch(*(torch.from_numpy(x).cuda() for x in (
+        text, tl, codes, cl, rng.standard_normal((B, 100, 1824)).astype(np.float32), ml)))
+    tc = TrainConfig.from_dict({"gradient_accumulation_steps": 1,
+                                "optimizer": {"learning_rate": 1e-3}})
+    opt = trainer.make_optimizer(tc, 20)
+    state = trainer.init_train_state(torch.Generator(device="cuda").manual_seed(1), cfg.gpt,
+                                     tc.lora, opt, "cuda")
+    mel = []
+    for _ in range(20):
+        state, m = trainer.train_step(state, t.base_params, batch, cfg.gpt, tc.lora, opt,
+                                      tc.text_weight)
+        mel.append(m["loss_mel"])
+    after = trainer.eval_step(state.lora_params, t.base_params, batch, cfg.gpt, tc.lora,
+                              tc.text_weight)["loss_mel"]
+    mel = [float(x) for x in mel] + [float(after)]
+    ratio = mel[-1] / mel[0]
+    emit({"check": "lora learning, full width: mel loss after 20 updates over the first",
+          "mel_loss": mel, "ratio": ratio, "limit": 0.9, "ok": ratio <= 0.9})
+    if not ratio <= 0.9:
+        raise SmokeFailure(f"lora learning: mel loss {mel[0]} -> {mel[-1]} ({ratio:.3f})")
+    del state, opt, batch
+
+    # serve what was trained: the .pth twin and the merged directory
+    merged_qkv = lora.merge(t.base_params, t.state.lora_params, t.tc.lora,
+                            torch.bfloat16)["gpt"]["blocks"]["attn"]["qkv_w"]
+    pth = os.path.join(t.out_dir, "gpt_finetuned.pth")
+    merged_dir = os.path.join(t.out_dir, "model_epoch_1")
+    del t
+    torch.cuda.empty_cache()
+    gen = dict(num_beams=1, do_sample=False, max_mel_tokens=200, max_text_tokens_per_sentence=120)
+    launches = {n: 0 for n in kernels}
+    out = {}
+    for name, gpt_path, spk in (("gpt_finetuned.pth", pth, None), ("model_epoch_1", merged_dir,
+                                                                   None),
+                                ("gpt_finetuned.pth speaker_id", pth, "spk_a")):
+        eng = engine_mod.IndexTTS(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                                  gpt_path=gpt_path)
+        qkv_equal = torch.equal(eng.gpt_params["gpt"]["blocks"]["attn"]["qkv_w"], merged_qkv)
+        for k in kernels.values():
+            k.launches = 0
+        path = os.path.join(root, f"{name.replace(' ', '_')}.wav")
+        eng.infer(None if spk else prompt, LONG, path, speaker_id=spk, **gen)
+        n = {k: v.launches for k, v in kernels.items()}
+        s = eng.last_stats
+        sr, wav = wavfile.read(path)
+        out[name] = (s["codes"], n, qkv_equal)
+        launches = {k: launches[k] + n[k] for k in n}
+        if not qkv_equal or sr != 24000 or wav.dtype != np.int16 \
+                or wav.shape[0] != sum(s["code_lens"]) * 1024 or n["K2"] != s["decode_steps"] \
+                or n["K1"] != K1_PER_VOCODE * len(s["code_lens"]):
+            raise SmokeFailure(f"lora served {name}: qkv_w equal {qkv_equal}, wav {sr} "
+                               f"{wav.dtype} {wav.shape}, launches {n} over "
+                               f"{s['decode_steps']} steps")
+        del eng
+        torch.cuda.empty_cache()
+    a, b = out["gpt_finetuned.pth"][0], out["model_epoch_1"][0]
+    codes_equal = len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    emit({"phase": "lora served: gpt_finetuned.pth and the merged directory model_epoch_1",
+          "codes_equal": codes_equal, "code_lens": [len(x) for x in a],
+          "qkv_w_equal_to_merge_bf16": all(v[2] for v in out.values()),
+          "launches": {k: v[1] for k, v in out.items()},
+          "phase_s": time.perf_counter() - t_phase})
+    if not codes_equal:
+        raise SmokeFailure("lora served: the .pth twin and the merged directory decode apart")
+    shutil.rmtree(root)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2139,6 +2583,11 @@ def main(argv=None) -> int:
                                                            kernels, prompt, beam3)
     n = reload_and_warmup(torch, engine_mod, httpd, kernels, prompt, gpt_pth, checksum)
     launches["fused_anti_alias_activation"] += n["K1"]
+    # the LoRA fine-tuning slice: its served requests with the counts at 0
+    # just before each, read just after
+    n = lora_finetune(torch, engine_mod, kernels, prompt, out_dir)
+    launches["fused_anti_alias_activation"] += n["K1"]
+    launches["fused_decode_trunk_flat[bf16]"] += n["K2"]
     # the beam-reorder path: counts at 0 just before it, read just after
     tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
                               device="cuda", seed=0)

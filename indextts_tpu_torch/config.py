@@ -4,12 +4,16 @@ A copy of the JAX package's schema (indextts_tpu/config.py), kept in this
 package so the port never imports the JAX one.  It mirrors the reference
 OmegaConf YAML layout (finetune_models/config.yaml:1-276) as plain
 dataclasses; unknown keys are ignored.  PyYAML is imported only by
-`Config.load` and `Config.save`, so the defaults work without it.
+`Config.load`; `Config.save` writes YAML itself, so the defaults and the
+trainer work without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -329,7 +333,61 @@ class Config:
         return dataclasses.asdict(self)
 
     def save(self, path: str) -> None:
-        import yaml
-
+        """Write the config as YAML, without PyYAML (the card machine has
+        none): `Config.load` reads it back to an equal Config."""
         with open(path, "w", encoding="utf-8") as f:
-            yaml.safe_dump(self.to_dict(), f, sort_keys=False, allow_unicode=True)
+            f.write(to_yaml(self.to_dict()))
+
+
+# words YAML 1.1 reads as booleans or null when they stand unquoted
+_YAML_WORDS = {"y", "yes", "n", "no", "true", "false", "on", "off", "null", "~"}
+
+
+def _yaml_scalar(x: Any) -> str:
+    if x is None:
+        return "null"
+    if isinstance(x, bool):
+        return "true" if x else "false"
+    if isinstance(x, int):
+        return str(x)
+    if isinstance(x, float):
+        if math.isnan(x):
+            return ".nan"
+        if math.isinf(x):
+            return ".inf" if x > 0 else "-.inf"
+        r = repr(x)
+        # YAML 1.1 reads an exponent as a float only after a dot ("5.0e-06")
+        if "e" in r and "." not in r:
+            r = r.replace("e", ".0e")
+        return r
+    if isinstance(x, str):
+        return json.dumps(x, ensure_ascii=False)   # a double-quoted YAML scalar
+    raise TypeError(f"cannot write a {type(x).__name__} as YAML")
+
+
+def _yaml_key(k: Any) -> str:
+    if isinstance(k, str) and re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", k) \
+            and k.lower() not in _YAML_WORDS:
+        return k
+    return _yaml_scalar(k)
+
+
+def _yaml_flow(x: Any) -> str:
+    if isinstance(x, (list, tuple)):
+        return "[" + ", ".join(_yaml_flow(v) for v in x) + "]"
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{_yaml_key(k)}: {_yaml_flow(v)}" for k, v in x.items()) + "}"
+    return _yaml_scalar(x)
+
+
+def to_yaml(tree: Dict[str, Any], indent: int = 0) -> str:
+    """A tree of dicts, lists and scalars as block-style YAML (nested
+    mappings as blocks, lists and empty mappings in flow style)."""
+    pad = " " * indent
+    lines = []
+    for k, v in tree.items():
+        if isinstance(v, dict) and v:
+            lines.append(f"{pad}{_yaml_key(k)}:\n{to_yaml(v, indent + 2)}")
+        else:
+            lines.append(f"{pad}{_yaml_key(k)}: {_yaml_flow(v)}\n")
+    return "".join(lines)

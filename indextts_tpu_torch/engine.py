@@ -259,8 +259,9 @@ class IndexTTS:
                  gpt_path: Optional[str] = None, speaker_info_path: Optional[str] = None):
         """`config` takes the place of `cfg_path` (no YAML needed); with
         neither, the dataclass defaults (the flagship) apply.  The GPT
-        checkpoint is `gpt_path` (absolute, or relative to `model_dir`), else
-        the config's `gpt_checkpoint` in `model_dir`; the vocoder's is the
+        checkpoint is `gpt_path` (absolute, or relative to `model_dir`; a
+        `.pth` file, or a merged-weight directory the port's trainer wrote),
+        else the config's `gpt_checkpoint` in `model_dir`; the vocoder's is the
         config's `bigvgan_checkpoint` there.  A missing file leaves random
         weights from a fixed seed.  `speaker_info_path` names the
         speaker_info.json whose speakers (and their medoid_mel.npy files
@@ -332,9 +333,12 @@ class IndexTTS:
         self.speaker_mels: Dict[str, np.ndarray] = {}
         self.mean_condition: Optional[np.ndarray] = None
         if os.path.isdir(self.gpt_path):
-            raise NotImplementedError(f"{self.gpt_path} is a directory: native checkpoint "
-                                      "directories are ROADMAP item A14")
-        if os.path.exists(self.gpt_path):
+            # the port's own directory: the merged weights the trainer writes
+            # (train/run.py, model_epoch_N)
+            self._set_gpt_params(from_jax.gpt_params_from_numpy(
+                checkpoint.load_pytree(self.gpt_path), self.cfg.gpt, self.gpt_dtype,
+                self.device))
+        elif os.path.exists(self.gpt_path):
             # the numpy tree goes to the device in gpt_dtype, and is quantized
             # from that master as the precision keys say
             tree, extras = checkpoint.load_gpt_checkpoint(self.gpt_path, self.cfg.gpt)

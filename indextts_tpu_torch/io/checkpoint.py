@@ -17,11 +17,19 @@ Every tensor becomes float32 numpy at once (fp16 and bf16 saves go through
 torch's fp32 upcast, which numpy cannot do for bf16); `io/from_jax.py` then
 checks the tree against the port's layout and copies it to the device.  Not
 ported: the DVAE converter (ROADMAP item A13, the port has no DVAE model
-yet) and native checkpoint directories (A14).
+yet).
+
+The port's own checkpoint directories (`save_pytree` / `load_pytree`: the
+trainer's resume and merged-weight directories) are an `.npz` of arrays
+beside a JSON file of the tree.  The JAX package writes orbax directories
+instead, which need JAX to read; weights cross between the packages as
+`.pth` files.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -428,9 +436,71 @@ def load_bigvgan_checkpoint(path: str, cfg: Optional[BigVGANConfig] = None) -> D
 # native checkpoint directories
 # ---------------------------------------------------------------------------
 
-def save_pytree(path: str, tree: Any) -> None:
-    raise NotImplementedError("native checkpoint directories are ROADMAP item A14")
+PYTREE_FILE = "pytree.json"
+ARRAYS_FILE = "arrays.npz"
+_FORMAT = "indextts_tpu_torch.pytree"
+# the files an orbax checkpoint directory (the JAX package's format) holds
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
-def load_pytree(path: str, like: Any = None) -> Any:
-    raise NotImplementedError("native checkpoint directories are ROADMAP item A14")
+def save_pytree(path: str, tree: Dict[str, Any]) -> None:
+    """Write a tree of dicts (string keys) over tensors and int / float
+    scalars as a directory: the arrays in `arrays.npz` (bf16 as its uint16
+    bits) and the structure, dtypes and scalars in `pytree.json`.  No
+    pickle.  Replaces the directory's files if they exist."""
+    arrays: Dict[str, np.ndarray] = {}
+
+    def node(x, where):
+        if isinstance(x, dict):
+            bad = [k for k in x if not isinstance(k, str)]
+            if bad:
+                raise TypeError(f"{where}: keys must be strings, got {bad!r}")
+            return {"dict": {k: node(v, f"{where}.{k}") for k, v in x.items()}}
+        if isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous()
+            dtype = str(t.dtype).replace("torch.", "")
+            arr = t.view(torch.uint16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+            key = f"a{len(arrays)}"
+            arrays[key] = arr
+            return {"array": key, "dtype": dtype, "shape": list(t.shape)}
+        if isinstance(x, (int, float)) and not isinstance(x, bool):
+            return {"value": x}
+        raise TypeError(f"{where}: cannot save a {type(x).__name__}")
+
+    desc = {"format": _FORMAT, "version": 1, "tree": node(tree, "tree")}
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, ARRAYS_FILE), **arrays)
+    with open(os.path.join(path, PYTREE_FILE), "w", encoding="utf-8") as f:
+        json.dump(desc, f)
+
+
+def load_pytree(path: str, device="cpu") -> Any:
+    """Read a directory written by `save_pytree`: tensors on `device`,
+    scalars as Python numbers.  The JAX package's orbax directories are
+    refused: carry weights across as a `.pth` file instead."""
+    desc_path = os.path.join(path, PYTREE_FILE)
+    if not os.path.exists(desc_path):
+        if any(os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
+            raise ValueError(
+                f"{path} is an orbax checkpoint directory (the JAX package's format), "
+                "which this package cannot read; export the weights as a .pth file "
+                "(indextts_tpu.io.export.save_gpt_pth, or the gpt_epoch_N.pth / "
+                "gpt_finetuned.pth its trainer writes) and load that")
+        raise FileNotFoundError(f"{path}: no {PYTREE_FILE}; not a checkpoint directory "
+                                "written by io/checkpoint.save_pytree")
+    with open(desc_path, encoding="utf-8") as f:
+        desc = json.load(f)
+    if desc.get("format") != _FORMAT:
+        raise ValueError(f"{desc_path}: format {desc.get('format')!r} is not {_FORMAT!r}")
+    with np.load(os.path.join(path, ARRAYS_FILE)) as npz:
+        def build(n):
+            if "dict" in n:
+                return {k: build(v) for k, v in n["dict"].items()}
+            if "array" in n:
+                t = torch.from_numpy(npz[n["array"]])
+                if n["dtype"] == "bfloat16":
+                    t = t.view(torch.bfloat16)
+                return t.reshape(n["shape"]).to(device)
+            return n["value"]
+
+        return build(desc["tree"])

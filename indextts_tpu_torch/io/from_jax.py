@@ -7,6 +7,7 @@ plain copy.  Each loader checks the tree against the port's own layout for
 the config before copying.  Quantized GPT leaves (ops/quantization.py:
 int8 ``{"q", "s"}``, fused int4 ``{"q4", "s"}``, shared int4 ``{"q4s", "s"}``)
 carry across as they are, int8 data and fp32 scales, after the same check.
+Leaves may also be torch tensors (a tree from io/checkpoint.load_pytree).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import BigVGANConfig, GPTConfig
+from indextts_tpu_torch.config import BigVGANConfig, GPTConfig, LoRAConfig
 from indextts_tpu_torch.models import bigvgan, unified_voice
+from indextts_tpu_torch.train import lora
 
 
 def _quantized_leaf(tree: dict, like: torch.Tensor, device, path: str):
@@ -54,6 +56,11 @@ def _convert(tree, like, dtype, device, path="params"):
             raise ValueError(f"{path}: expected a list of {len(like)}")
         return [_convert(t, l, dtype, device, f"{path}[{i}]")
                 for i, (t, l) in enumerate(zip(tree, like))]
+    if isinstance(tree, torch.Tensor):     # a tree the port loaded itself
+        if tuple(tree.shape) != tuple(like.shape):
+            raise ValueError(f"{path}: shape {tuple(tree.shape)} != expected "
+                             f"{tuple(like.shape)}")
+        return tree.to(device=device, dtype=dtype or like.dtype).contiguous()
     arr = np.asarray(tree)
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"{path}: shape {arr.shape} != expected {tuple(like.shape)}")
@@ -79,3 +86,14 @@ def bigvgan_params_from_numpy(tree: Any, cfg: BigVGANConfig,
                               dtype: Optional[torch.dtype] = None, device="cpu"):
     """BigVGAN parameters from the JAX package's numpy tree."""
     return _convert(tree, _layout(bigvgan.init_params, cfg), dtype, device)
+
+
+def lora_params_from_numpy(tree: Any, cfg: GPTConfig, lora_cfg: LoRAConfig, device="cpu"):
+    """LoRA adapters (train/lora.py's layout: per target `a` [L, in, r] and
+    `b` [L, r, out]) from the JAX package's numpy tree, in fp32."""
+    L, r = cfg.layers, lora_cfg.r
+    dims = lora.target_dims(cfg)
+    like = {n: {"a": torch.empty((L, dims[n][0], r), device="meta"),
+                "b": torch.empty((L, r, dims[n][1]), device="meta")}
+            for n in lora_cfg.target_modules}
+    return _convert(tree, like, torch.float32, device)

@@ -16,6 +16,7 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from indextts_tpu_torch.ops import quantization
 
@@ -54,6 +55,17 @@ def tree_index(tree, i: int):
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def tree_unstack(tree):
+    """Every layer's tree of a tree of stacked tensors, by one `unbind` a
+    leaf: its backward is one stack, where indexing each layer would form
+    a full-size gradient for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 def init_gpt2_params(size: GPT2Size, generator: torch.Generator,
@@ -149,13 +161,21 @@ def _causal_bias(attention_mask: Optional[torch.Tensor], T: int,
 
 
 def forward(params: Dict[str, Any], hidden: torch.Tensor,
-            attention_mask: Optional[torch.Tensor], size: GPT2Size) -> torch.Tensor:
+            attention_mask: Optional[torch.Tensor], size: GPT2Size,
+            remat: bool = False) -> torch.Tensor:
     """Teacher-forced forward.  hidden [B, T, D]; attention_mask [B, T]
-    (1 = valid) or None.  Returns ln_f(hidden) [B, T, D]."""
+    (1 = valid) or None.  Returns ln_f(hidden) [B, T, D].  With `remat`,
+    backward recomputes each block from its input instead of keeping its
+    activations (the fp32 attention scores above all), as JAX's
+    `jax.checkpoint` of the layer scan does."""
     bias = _causal_bias(attention_mask, hidden.shape[1], hidden.device)
     attend = lambda q, k, v: _attention(q, k, v, bias)  # noqa: E731
-    for l in range(size.layers):
-        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+    for blk in tree_unstack(params["blocks"]):
+        if remat:
+            hidden = torch.utils.checkpoint.checkpoint(
+                _block, hidden, blk, size.heads, attend, use_reentrant=False)
+        else:
+            hidden = _block(hidden, blk, size.heads, attend)
     return layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
 
 

@@ -112,6 +112,86 @@ def _lm_head(params, hidden):
     return _head_mm(h, params["mel_head"]["kernel"]) + params["mel_head"]["bias"]
 
 
+def build_io_tokens(ids: torch.Tensor, lengths: torch.Tensor, start: int,
+                    stop: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[B, T] right-padded ids -> ([B, T+2] inputs [start, ids[:L], stop, 0...],
+    [B, T+1] targets = inputs[:, 1:], [B, T+1] mask over the first L+1
+    targets) (train.py:233-255,302-312)."""
+    B, T = ids.shape
+    pos = torch.arange(T + 2, device=ids.device)[None]
+    L = lengths[:, None]
+    shifted = torch.nn.functional.pad(ids, (1, 1))   # ids at positions 1..T
+    inputs = torch.where(pos == 0, start,
+                         torch.where(pos <= L, shifted, torch.where(pos == L + 1, stop, 0)))
+    tmask = torch.arange(T + 1, device=ids.device)[None] < (L + 1)
+    return inputs, inputs[:, 1:], tmask
+
+
+def _masked_ce(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the masked positions, log-softmax in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    m = mask.float()
+    return (nll * m).sum() / m.sum().clamp(min=1)
+
+
+def train_forward(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
+                  text_ids: torch.Tensor, text_lengths: torch.Tensor,
+                  mel_codes: torch.Tensor, codes_lengths: torch.Tensor,
+                  remat: bool = False) -> Dict[str, torch.Tensor]:
+    """Teacher-forced dual-CE forward (train.py:168-346).  cond_latent
+    [B, 32, D]; ids right-padded with their lengths.  Returns loss_text,
+    loss_mel and the logits, targets and masks of both streams."""
+    size = trunk_size(cfg)
+    B = text_ids.shape[0]
+    dev = text_ids.device
+    cond_len = cond_latent.shape[1]
+    text_in, text_tgt, text_mask = build_io_tokens(
+        text_ids, text_lengths, cfg.start_text_token, cfg.stop_text_token)
+    mel_in, mel_tgt, mel_mask = build_io_tokens(
+        mel_codes, codes_lengths, cfg.start_mel_token, cfg.stop_mel_token)
+    Tt2, Tm2 = text_in.shape[1], mel_in.shape[1]
+    if Tt2 > cfg.max_text_seq_len or Tm2 > cfg.max_mel_seq_len:
+        raise ValueError(f"text width {Tt2 - 2} / mel width {Tm2 - 2} exceed "
+                         f"max_text_tokens {cfg.max_text_tokens} / max_mel_tokens "
+                         f"{cfg.max_mel_tokens}")
+    text_emb = (params["text_embedding"]["weight"][text_in]
+                + params["text_pos_embedding"]["weight"][:Tt2][None])
+    mel_emb = (params["mel_embedding"]["weight"][mel_in]
+               + params["mel_pos_embedding"]["weight"][:Tm2][None])
+    emb = torch.cat([cond_latent.to(text_emb.dtype), text_emb, mel_emb], dim=1)
+    attn = torch.cat([
+        torch.ones(B, cond_len, dtype=torch.int32, device=dev),
+        (torch.arange(Tt2, device=dev)[None] < (text_lengths[:, None] + 2)).int(),
+        (torch.arange(Tm2, device=dev)[None] < (codes_lengths[:, None] + 2)).int(),
+    ], dim=1)
+    hidden = gpt2.forward(params["gpt"], emb, attn, size, remat=remat)
+    latent = layer_norm(hidden[:, cond_len:], params["final_norm"]["scale"],
+                        params["final_norm"]["bias"])
+    # each stream drops its final position (train.py:297-298)
+    text_logits = (_head_mm(latent[:, :Tt2], params["text_head"]["kernel"])
+                   + params["text_head"]["bias"])[:, :-1]
+    mel_logits = (_head_mm(latent[:, Tt2:], params["mel_head"]["kernel"])
+                  + params["mel_head"]["bias"])[:, :-1]
+    return {
+        "loss_text": _masked_ce(text_logits, text_tgt, text_mask),
+        "loss_mel": _masked_ce(mel_logits, mel_tgt, mel_mask),
+        "mel_logits": mel_logits, "mel_targets": mel_tgt, "mel_mask": mel_mask,
+        "text_logits": text_logits, "text_targets": text_tgt, "text_mask": text_mask,
+    }
+
+
+def top_k_accuracy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                   ks=(1, 10, 20)) -> Dict[str, torch.Tensor]:
+    """Masked top-k accuracy in percent (train.py:348-371).  The shortlist
+    takes `jax.lax.top_k`'s order among equal logits (the lower index
+    first), which bf16 logits have often."""
+    _, top = sampling._top_k(logits.float(), max(ks))
+    hit = top == targets[..., None]
+    denom = mask.sum().clamp(min=1)
+    return {f"acc_{k}": (hit[..., :k].any(dim=-1) & mask).sum() / denom * 100.0 for k in ks}
+
+
 def latent_forward(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
                    text_ids: torch.Tensor, text_lengths: torch.Tensor,
                    mel_codes: torch.Tensor, codes_lengths: torch.Tensor) -> torch.Tensor:

@@ -227,9 +227,6 @@ class TTSService:
         if resolved is None:
             raise FileNotFoundError(candidates[0])
         resolved = os.path.abspath(resolved)   # IndexTTS joins relative paths with model_dir
-        if os.path.isdir(resolved):    # refused before the serving engine is dropped
-            raise NotImplementedError(f"{resolved} is a directory: native checkpoint "
-                                      "directories are ROADMAP item A14")
         with self._lock:
             self.gpt_path = resolved
             old_tts, self._tts = self._tts, None

@@ -169,11 +169,12 @@ def test_default_infer_returns_a_wav(engines):
 def test_unported_options_raise(engines, option, tmp_path, monkeypatch):
     """The options once refused: speaker_id with no prompt synthesises from
     the checkpoint's speaker data (an id the engine does not hold raises
-    ValueError, as in JAX), and a gpt_path that is a directory (a native
-    checkpoint, ROADMAP item A14) still raises."""
+    ValueError, as in JAX), and a gpt_path that is a directory loads the
+    port's own checkpoint directory (tests/test_torch_train_run.py), so a
+    directory without one raises, naming the file it lacks."""
     _, teng, d = engines
     if option == "gpt_path directory":
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(FileNotFoundError, match="pytree.json"):
             torch_engine.IndexTTS(cfg_path=str(d / "config.yaml"), model_dir=str(d),
                                   device="cpu", gpt_path=str(tmp_path))
         return
@@ -250,7 +251,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
             "indextts_tpu_torch.ops.cuda.decode_layer, indextts_tpu_torch.ops.cuda.pool_trunk, "
             "indextts_tpu_torch.serve.scheduler, indextts_tpu_torch.serve.httpd, "
             "indextts_tpu_torch.serve.beam_pool, indextts_tpu_torch.io.checkpoint, "
-            "indextts_tpu_torch.io.export; "
+            "indextts_tpu_torch.io.export, indextts_tpu_torch.io.from_jax, "
+            "indextts_tpu_torch.data.dataset, indextts_tpu_torch.data.native_index, "
+            "indextts_tpu_torch.train.lora, indextts_tpu_torch.train.optim, "
+            "indextts_tpu_torch.train.trainer, indextts_tpu_torch.train.run; "
             "new = set(sys.modules) - before; "
             "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
             "'indextts_tpu')))")
