@@ -90,7 +90,27 @@
    - /model/reload onto that gpt.pth while serving: the next request runs
      on the loaded weights after `IndexTTS.warmup`, and the card's
      allocated memory is within 10% of what one engine held before.
-8. LoRA fine-tuning (`indextts_tpu_torch/train/`):
+8. The DVAE and extraction slice (`indextts_tpu_torch/data/extract.py`,
+   `models/dvae.py`, `train/dvae.py`, every conditioning type), which
+   reaches none of the kernels (their counts stay 0 through it):
+   - small fp32 models on the card and on the CPU from the same .pth files:
+     extraction of 2 speakers x 6 clips (manifests and speaker_info.json
+     byte-equal, mels within 1e-4, the medoid conditioning within 1e-4
+     relative, codes equal wherever the CPU's two nearest codebook columns
+     are more than 1e-4 apart, at most 1% exempt), a planted fault (the most
+     used codebook column swapped with the least used) that must part the codes,
+     three DVAE train steps (metrics within 1e-5 relative, codebooks within
+     1e-5) and get_conditioning of the four condition types (1e-4);
+   - at full width, random weights from fixed seeds written as gpt.pth and
+     dvae.pth: extraction of 2 speakers x 24 clips of 1-15 s at batch 16
+     (clips/s, audio s per wall s, each stage's ms a batch, peak memory,
+     distinct codes, decode and .npy-write seconds); 40 DVAE train steps at
+     the DVAETrainConfig defaults (step ms, windows/s, peak memory, a
+     model-FLOPs share of the fp32 peak, a profile of one step); the trained
+     weights through dvae.pth into a second extraction, and the LoRA
+     Trainer for 4 micro-steps on the extracted manifests;
+     get_conditioning of each type on a 10 s mel (ms a call).
+9. LoRA fine-tuning (`indextts_tpu_torch/train/`):
    - the small fp32 model on the card and on the CPU: three optimizer
      updates at gradient_accumulation_steps=2 with the clip firing, the
      adapters within 1e-5 of each other after every micro-step; a NaN base
@@ -110,7 +130,7 @@
      model_epoch_1: equal greedy codes for a 200-code request, qkv_w equal
      to the bf16 merge bit for bit, a speaker_id request with no prompt
      answers a wav; K2 once a decode step and K1 109 times a vocode.
-9. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
+10. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
    ms and share of its bound; K2 and K4 one entry per tier, with
    `launches_per_call` and `gbytes_per_s`); before it, on a line of its
    own, the previous design's K2 and K4 times as PERF.md records them
@@ -2510,6 +2530,571 @@ def lora_finetune(torch, engine_mod, kernels, prompt: str, out_dir: str) -> dict
     return launches
 
 
+# the DVAE and extraction slice: a small model whose DVAE has 256 codes
+EXTRACT_SMALL = {"gpt": SMALL_MODEL["gpt"],
+                 "vqvae": {"num_tokens": 256, "hidden_dim": 32, "codebook_dim": 64,
+                           "num_resnet_blocks": 2}}
+CODE_MARGIN = 1e-4          # codes may part only where the two nearest columns are this close
+
+
+def write_audio_list(root: str, rng, *, speakers, clips: int, seconds: tuple) -> tuple:
+    """Synthetic speech-like clips, int16 WAV at 24 kHz, one directory per
+    speaker: a tone with harmonics on a slow vibrato, a chirp and noise
+    under a syllable-rate envelope, `seconds` long (uniform), transcripts
+    from FT_SENTENCES.  Writes `root`/list.txt; returns (its path, the
+    audio seconds)."""
+    import numpy as np
+
+    from indextts_tpu_torch.utils.audio import write_wav
+
+    sr, lines, total = 24000, [], 0.0
+    for spk in speakers:
+        d = os.path.join(root, spk)
+        os.makedirs(d, exist_ok=True)
+        for i in range(clips):
+            n = int(rng.uniform(*seconds) * sr)
+            t = np.arange(n) / sr
+            f0 = rng.uniform(90, 300) * (1 + 0.05 * np.sin(2 * np.pi * rng.uniform(3, 6) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            x = sum(np.sin(k * phase) / k for k in range(1, 6))
+            x = x + 0.3 * np.sin(2 * np.pi * (200 + 400 * t / t[-1]) * t)
+            x = x + 0.2 * rng.standard_normal(n)
+            x = x * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+            x = 0.5 * x / np.abs(x).max()
+            write_wav(os.path.join(d, f"clip{i:02d}.wav"), (x * 32767).astype(np.int16), sr)
+            text = FT_SENTENCES[int(rng.integers(len(FT_SENTENCES)))]
+            lines.append(f"{os.path.join(d, f'clip{i:02d}.wav')}\t{text}")
+            total += n / sr
+    path = os.path.join(root, "list.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return path, total
+
+
+def code_margins(torch, dvae, ex, wav, Fb: int):
+    """Extractor `ex`'s (second-best - best) / best codebook distance at
+    each code position of `wav`, over the Fb-frame row its batch gives the
+    DVAE."""
+    import numpy as np
+
+    from indextts_tpu_torch.data import extract
+
+    m = ex.cfg.dataset.mel
+    F = extract.frames_for(wav.size, m.hop_length)
+    Lw = (Fb - 1) * m.hop_length + m.n_fft
+    row = np.zeros((1, Lw), np.float32)
+    padded = np.pad(wav, (m.n_fft // 2, m.n_fft // 2), mode="reflect")[:Lw]
+    row[0, : padded.size] = padded
+    with torch.no_grad(), dvae.no_tf32():
+        z = dvae.encode(ex.dvae_params, ex.mel_uncentered(torch.from_numpy(row).to(ex.device)),
+                        ex.cfg.vqvae)[0]
+        e = ex.dvae_params["codebook"]["embed"]
+        dist = (z * z).sum(-1, keepdim=True) - 2.0 * z @ e + (e * e).sum(0)
+        two = torch.topk(dist, 2, dim=-1, largest=False).values
+    return ((two[:, 1] - two[:, 0]) / two[:, 0].abs())[: (F - F % 4) // 4].cpu().numpy()
+
+
+def compare_extractions(ref_dir: str, got_dir: str, margins: dict) -> dict:
+    """Two extraction directories: text files byte-equal, mels' max|diff|,
+    the medoid conditioning's max|diff| / max|ref|, and the codes at the
+    positions whose margin (`margins`, by codes file) exceeds CODE_MARGIN;
+    the exempt positions are counted."""
+    import numpy as np
+
+    def files(d, suffix):
+        return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d)
+                      for f in fs if f.endswith(suffix))
+
+    texts = files(ref_dir, ".jsonl") + ["speaker_info.json"]
+    text_equal = texts == files(got_dir, ".jsonl") + ["speaker_info.json"] and all(
+        open(os.path.join(ref_dir, r), "rb").read() == open(os.path.join(got_dir, r), "rb").read()
+        for r in texts)
+    out = {"text_files": len(texts), "text_byte_equal": text_equal, "mel_max_abs_err": 0.0,
+           "cond_rel_err": 0.0, "code_positions": 0, "code_mismatches": 0, "exempt": 0,
+           "distinct_codes": 0}
+    if files(ref_dir, ".npy") != files(got_dir, ".npy"):
+        out["text_byte_equal"] = False
+        return out
+    distinct = set()
+    for rel in files(ref_dir, ".npy"):
+        ref, got = np.load(os.path.join(ref_dir, rel)), np.load(os.path.join(got_dir, rel))
+        if ref.shape != got.shape or ref.dtype != got.dtype:
+            out["text_byte_equal"] = False
+            continue
+        if "/codes/" in rel:
+            clear = margins[rel] > CODE_MARGIN
+            out["code_positions"] += ref.size
+            out["exempt"] += int((~clear).sum())
+            out["code_mismatches"] += int((ref[clear] != got[clear]).sum())
+            distinct |= set(ref.tolist())
+        elif rel.endswith("medoid_condition.npy"):
+            out["cond_rel_err"] = max(out["cond_rel_err"],
+                                      float(np.abs(got - ref).max() / np.abs(ref).max()))
+        else:
+            out["mel_max_abs_err"] = max(out["mel_max_abs_err"], float(np.abs(got - ref).max()))
+    out["distinct_codes"] = len(distinct)
+    return out
+
+
+def extraction_agrees(c: dict) -> bool:
+    return (c["text_byte_equal"] and c["mel_max_abs_err"] <= 1e-4 and c["cond_rel_err"] <= 1e-4
+            and c["code_mismatches"] == 0 and c["exempt"] <= 0.01 * c["code_positions"]
+            and c["code_positions"] > 0)
+
+
+def codebook_from_clips(torch, dvae, params, cfg, wav_paths, generator) -> None:
+    """Sets a codebook drawn from the data, where a trained one sits: the
+    DVAE's z at `cfg.num_tokens` random positions of the clips (with
+    replacement when they hold fewer) plus noise at 0.05 of z's spread,
+    embed_avg the same, cluster sizes one.  A random normal codebook sends
+    every position of random weights to one code."""
+    from indextts_tpu_torch.ops.mel import mel_spectrogram
+    from indextts_tpu_torch.utils.audio import load_prompt_audio
+
+    device = params["enc_conv0"]["w"].device
+    zs = []
+    with torch.no_grad(), dvae.no_tf32():
+        for p in wav_paths:
+            wav = torch.as_tensor(load_prompt_audio(p, 24000), device=device).reshape(1, -1)
+            mel = mel_spectrogram(wav)
+            zs.append(dvae.encode(params, mel[..., : mel.shape[-1] // 4 * 4], cfg)[0])
+        z = torch.cat(zs)
+        N = cfg.num_tokens
+        idx = (torch.randperm(z.shape[0], generator=generator, device=device)[:N]
+               if z.shape[0] >= N else
+               torch.randint(z.shape[0], (N,), generator=generator, device=device))
+        noise = torch.randn((N, z.shape[1]), generator=generator, device=device)
+        embed = (z[idx] + 0.05 * z.std() * noise).t().contiguous()
+    params["codebook"] = {"embed": embed, "cluster_size": torch.ones(N, device=device),
+                          "embed_avg": embed.clone()}
+
+
+def extract_small_agreement(torch, out_dir: str) -> None:
+    """The card against the port on the CPU on small fp32 models (the small
+    GPT, a DVAE of 256 codes of 64 dims, its codebook drawn from the clips'
+    z), from the same .pth files:
+    - extraction of 2 speakers x 6 clips of 1-4 s (one batch): manifests and
+      speaker_info.json byte-equal, mels within 1e-4, the medoid
+      conditioning within 1e-4 relative, codes equal wherever the CPU's two
+      nearest columns are more than 1e-4 apart (at most 1% exempt); a planted
+      fault, the most used codebook column swapped with the least used on
+      the card, must part the codes;
+    - three DVAE train steps (rebalance every 2, lr 1e-5, the same normal
+      draws): metrics within 1e-5 relative, codebooks within 1e-5;
+    - get_conditioning of each condition type within 1e-4 relative."""
+    import numpy as np
+
+    from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.data import extract
+    from indextts_tpu_torch.io import export
+    from indextts_tpu_torch.models import dvae
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.train import dvae as dtrain
+    from indextts_tpu_torch.train.lora import tree_map
+    from indextts_tpu_torch.utils.audio import load_prompt_audio
+
+    root = os.path.join(out_dir, "extract_small")
+    model_dir = os.path.join(root, "model")
+    os.makedirs(model_dir, exist_ok=True)
+    cfg = Config.from_dict(EXTRACT_SMALL)
+    list_path, _ = write_audio_list(root, np.random.default_rng(13), speakers=("spk_a", "spk_b"),
+                                    clips=6, seconds=(1.0, 4.0))
+    entries = extract.parse_audio_list(list_path)
+    export.save_gpt_pth(os.path.join(model_dir, "gpt.pth"),
+                        uv.init_params(cfg.gpt, torch.Generator().manual_seed(11)), cfg.gpt,
+                        save_dtype="fp32")
+    g = torch.Generator().manual_seed(12)
+    params = dvae.init_params(cfg.vqvae, g)
+    codebook_from_clips(torch, dvae, params, cfg.vqvae, [p for p, _ in entries], g)
+    export.save_dvae_pth(os.path.join(model_dir, "dvae.pth"), params, cfg.vqvae)
+    exs = {dev: extract.CodecExtractor(cfg, model_dir, device=dev) for dev in ("cuda", "cpu")}
+    dirs = {dev: os.path.join(root, f"out_{dev}") for dev in exs}
+    for dev, ex in exs.items():
+        extract.extract_audio_list(list_path, dirs[dev], cfg, model_dir, num_workers=4,
+                                   extractor=ex)
+    wavs = {p: np.asarray(load_prompt_audio(p, 24000), np.float32).reshape(-1)
+            for p, _ in entries}
+    Fb = extract.bucket_frames(max(extract.frames_for(w.size) for w in wavs.values()))
+    rel = {p: os.path.join(extract.speaker_of(p), "codes",
+                           os.path.splitext(os.path.basename(p))[0] + ".npy") for p in wavs}
+    margins = {rel[p]: code_margins(torch, dvae, exs["cpu"], w, Fb) for p, w in wavs.items()}
+    cmp = compare_extractions(dirs["cpu"], dirs["cuda"], margins)
+
+    # planted fault: the most used column swapped with the least used, on the card
+    used = np.concatenate([np.load(os.path.join(dirs["cpu"], spk, "codes", f))
+                           for spk in ("spk_a", "spk_b")
+                           for f in os.listdir(os.path.join(dirs["cpu"], spk, "codes"))])
+    counts = np.bincount(used, minlength=cfg.vqvae.num_tokens)
+    u, v = int(counts.argmax()), int(counts.argmin())      # v unused, or the least used
+    embed = exs["cuda"].dvae_params["codebook"]["embed"]
+    saved = embed.clone()
+    embed[:, [u, v]] = embed[:, [v, u]]
+    faulty = os.path.join(root, "out_fault")
+    extract.extract_audio_list(list_path, faulty, cfg, model_dir, extractor=exs["cuda"])
+    embed.copy_(saved)
+    fault = compare_extractions(dirs["cpu"], faulty, margins)
+    caught = fault["code_mismatches"] > 0
+
+    # three DVAE train steps from the same weights and windows
+    tc = dtrain.DVAETrainConfig(batch_size=8, mel_width=64, steps=3, lr=1e-5, warmup_steps=1,
+                                rebalance_every=2, rebalance_lo=0.002)
+    start = dvae.init_params(cfg.vqvae, torch.Generator().manual_seed(14))
+    windows = dtrain.mel_window_batches(dtrain.discover_mels(dirs["cpu"]), 8, 64, seed=15)
+    g = torch.Generator().manual_seed(16)
+    steps = [(torch.from_numpy(next(windows)),
+              torch.randn((cfg.vqvae.codebook_dim, cfg.vqvae.num_tokens), generator=g))
+             for _ in range(3)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        opt = dtrain.make_optimizer(tc)
+        state = dtrain.init_state(cfg.vqvae, opt, params=start, device=dev)
+        metrics = []
+        for mel, noise in steps:
+            state, m = dtrain.train_step(state, mel.to(dev), cfg.vqvae, opt, tc,
+                                         noise=noise.to(dev))
+            metrics.append({k: float(x) for k, x in m.items()})
+        runs[dev] = (state, metrics)
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                     for a, b in zip(runs["cuda"][1], runs["cpu"][1]) for k in b)
+    codebook_err = _leaf_rel_err(torch, runs["cuda"][0].params["codebook"],
+                                 runs["cpu"][0].params["codebook"])
+    params_err = _leaf_rel_err(torch, {k: v for k, v in runs["cuda"][0].params.items()
+                                       if k != "codebook"},
+                               {k: v for k, v in runs["cpu"][0].params.items() if k != "codebook"})
+    resets = sum(m["codes_reset"] for m in runs["cpu"][1])
+
+    # get_conditioning of every condition type
+    mel = torch.from_numpy(np.load(os.path.join(dirs["cpu"], "spk_a", "medoid_mel.npy")))[None]
+    cond_err = {}
+    for ctype in ("conformer_perceiver", "conformer_encoder", "perceiver", "default_mean"):
+        c = Config.from_dict({"gpt": {**EXTRACT_SMALL["gpt"], "condition_type": ctype}}).gpt
+        enc, perc = uv.init_conditioning_params(c, torch.Generator().manual_seed(17))
+        ref = uv.get_conditioning({"conditioning_encoder": enc, "perceiver_encoder": perc}, c,
+                                  mel, torch.tensor([mel.shape[-1]]))
+        on_card = tree_map(lambda x: x.cuda(), {"conditioning_encoder": enc,
+                                                "perceiver_encoder": perc})
+        got = uv.get_conditioning(on_card, c, mel.cuda(), torch.tensor([mel.shape[-1]]).cuda())
+        cond_err[ctype] = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    emit({"check": "extract and DVAE, small fp32 models: the card against the port on the CPU",
+          "extraction": cmp, "planted_fault": {"swapped_columns": [u, v], **fault,
+                                               "uses": [int(counts[u]), int(counts[v])],
+                                               "caught": caught},
+          "train_steps": {"metric_rel_err": metric_err, "codebook_rel_err": codebook_err,
+                          "params_rel_err_reported": params_err, "codes_reset": resets},
+          "get_conditioning_rel_err": cond_err,
+          "tol": {"mel": 1e-4, "cond": 1e-4, "codes_exempt_share": 0.01, "metrics": 1e-5,
+                  "codebook": 1e-5, "get_conditioning": 1e-4}})
+    if not extraction_agrees(cmp) or not caught or metric_err > 1e-5 or codebook_err > 1e-5 \
+            or resets == 0 or max(cond_err.values()) > 1e-4:
+        raise SmokeFailure(f"extract small: {cmp}, fault caught {caught}, train metrics "
+                           f"{metric_err}, codebook {codebook_err}, resets {resets}, "
+                           f"conditioning {cond_err}")
+
+
+def dvae_step_flops(cfg, B: int, W: int) -> tuple:
+    """Model FLOPs of one DVAE train step from the shapes: per window of W
+    frames the forward's products (2 x in x out x k a conv output position:
+    the two stride-2 convs at W/2 and W/4, the residual blocks, the output
+    conv and the decoder's input conv at W/4, the up-convs at W/2 and W, the
+    output conv at W; the quantizer's distances 2 x D x N at W/4), the
+    backward twice the convs' forward but for the first conv's input
+    gradient, and per step the EMA's one-hot product 2 x (B W/4) x D x N.
+    Returns (forward per window, per step)."""
+    C, H, D, N, k, n = cfg.channels, cfg.hidden_dim, cfg.codebook_dim, cfg.num_tokens, \
+        cfg.kernel_size, cfg.num_resnet_blocks
+    H2, q = 2 * H, W // 4
+    res = n * 2 * H2 * H2 * (2 * k + 1) * q
+    first = 2 * C * H * k * (W // 2)
+    convs = (first + 2 * H * H2 * k * q + res + 2 * H2 * D * q          # encoder
+             + 2 * D * H2 * q + res + 2 * H2 * H2 * k * (W // 2)         # decoder
+             + 2 * H2 * H * k * W + 2 * H * C * W)
+    dist = 2 * D * N * q
+    per_window = 3 * convs - first + dist
+    return convs + dist, B * per_window + 2 * B * q * D * N
+
+
+def extract_and_dvae(torch, out_dir: str) -> None:
+    """The DVAE and extraction slice (extraction, DVAE training, dvae.pth,
+    every conditioning type): the small models' card-against-CPU checks,
+    then at full width with random weights from fixed seeds (the flagship
+    GPT, 24 layers 1280 wide, and the shipped DVAE, 8192 codes of 512 dims,
+    its codebook drawn from the clips' z), written as gpt.pth (fp16) and
+    dvae.pth with the port's exporters:
+    - extraction of 2 speakers x 24 clips of 1-15 s at batch 16 with the
+      conditioning: clips/s, audio s per wall s, each stage's ms a batch
+      (CUDA events), peak memory, distinct codes, decode and .npy-write s;
+    - DVAE training from that dvae.pth on that output at the
+      DVAETrainConfig defaults (batch 32, width 256) for 40 steps: step ms, windows/s, peak memory, a
+      model-FLOPs share of the fp32 peak (TF32 off), a profile of one step;
+      every loss finite, the codebook moved;
+    - the trained weights through save_dvae_pth and load_dvae_checkpoint,
+      one speaker extracted again with them, and the LoRA Trainer for 4
+      micro-steps on the extracted manifests;
+    - get_conditioning of each condition type on a 10 s mel, ms a call.
+    None of this reaches K1-K4; the phase checks that none launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.data import extract
+    from indextts_tpu_torch.io import checkpoint, export, from_jax
+    from indextts_tpu_torch.models import dvae
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.ops.cuda import anti_alias, decode_layer, permute, pool_trunk
+    from indextts_tpu_torch.train import dvae as dtrain
+    from indextts_tpu_torch.train import run as run_mod
+    from indextts_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    kernels = [anti_alias.fused_anti_alias_activation, decode_layer.fused_decode_trunk_flat,
+               permute.permute_cache_rows, pool_trunk.fused_pool_step]
+    for k in kernels:
+        k.launches = 0
+    extract_small_agreement(torch, out_dir)
+    small_s = time.perf_counter() - t_phase
+
+    root = tempfile.mkdtemp(dir=out_dir, prefix="extract_full_")
+    model_dir = os.path.join(root, "model")
+    os.makedirs(model_dir)
+    shutil.copy(os.path.join(HERE, "checkpoints_test", "vocab.txt"), model_dir)
+    cfg = Config()
+    list_path, audio_s = write_audio_list(root, np.random.default_rng(22),
+                                          speakers=("spk_a", "spk_b"), clips=24,
+                                          seconds=(1.0, 15.0))
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    export.save_gpt_pth(os.path.join(model_dir, "gpt.pth"),
+                        uv.init_params(cfg.gpt, g, torch.float32, "cuda"), cfg.gpt)
+    params = dvae.init_params(cfg.vqvae, g, torch.float32, "cuda")
+    codebook_from_clips(torch, dvae, params, cfg.vqvae,
+                        [p for p, _ in extract.parse_audio_list(list_path)], g)
+    export.save_dvae_pth(os.path.join(model_dir, "dvae.pth"), params, cfg.vqvae)
+    del params
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+
+    # extraction, each stage between CUDA events, decode and writes timed
+    t0 = time.perf_counter()
+    ex = extract.CodecExtractor(cfg, model_dir, batch_size=16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stages = {"mel": [], "dvae_encode_quantize": [], "conditioning": []}
+
+    def timed(name, fn):
+        def run(*args):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args)
+            e1.record()
+            stages[name].append((e0, e1))
+            return out
+        return run
+
+    ex.mel_uncentered = timed("mel", ex.mel_uncentered)
+    ex.codes = timed("dvae_encode_quantize", ex.codes)
+    ex.conditioning = timed("conditioning", ex.conditioning)
+    host = {"decode": [], "npy_write": []}
+    load_audio, save = extract.audio_io.load_prompt_audio, np.save
+
+    def clocked(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            host[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    out_b = os.path.join(root, "extracted")
+    torch.cuda.reset_peak_memory_stats()
+    extract.audio_io.load_prompt_audio = clocked("decode", load_audio)
+    np.save = clocked("npy_write", save)
+    try:
+        t0 = time.perf_counter()
+        info = extract.extract_audio_list(list_path, out_b, cfg, model_dir, extractor=ex)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        extract.audio_io.load_prompt_audio, np.save = load_audio, save
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stage_ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in stages.items()}
+    busy_s = sum(sum(v) for v in stage_ms.values()) / 1e3
+    codes = [np.load(os.path.join(out_b, spk, "codes", f)) for spk in ("spk_a", "spk_b")
+             for f in sorted(os.listdir(os.path.join(out_b, spk, "codes")))]
+    n_clips = sum(st["num_clips"] for st in info.values())
+    emit({"phase": "extraction, full width (flagship GPT conditioning, the shipped DVAE), "
+                   "batch 16, with the conditioning", "card": card_line(),
+          "clips": n_clips, "audio_s": audio_s, "batches": len(stage_ms["mel"]),
+          "weights_write_s": write_s, "extractor_load_s": load_s, "wall_s": wall,
+          "clips_per_s": n_clips / wall, "audio_s_per_wall_s": audio_s / wall,
+          "stage_ms_per_batch": stage_ms, "stage_device_s": busy_s,
+          "wall_outside_stage_events_s": wall - busy_s,
+          "decode_s_summed_over_threads": sum(host["decode"]),
+          "npy_write_s": sum(host["npy_write"]), "peak_mem_gib": peak,
+          "codes": sum(c.size for c in codes),
+          "distinct_codes": len(set(np.concatenate(codes).tolist())),
+          "codes_dtype": str(codes[0].dtype)})
+    if n_clips != 48 or codes[0].dtype != np.int32 or \
+            not os.path.exists(os.path.join(out_b, "spk_b", "medoid_condition.npy")):
+        raise SmokeFailure(f"extraction full width: {n_clips} clips, {codes[0].dtype}")
+    del ex
+    torch.cuda.empty_cache()
+
+    # DVAE training on the extracted mels, each step between CUDA events
+    tc = dtrain.DVAETrainConfig(steps=40)
+    steps = []
+    inner = dtrain.train_step
+
+    def timed_step(state, mel, *args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if not steps:
+            steps.append(state.params["codebook"]["embed"].clone())
+        e0.record()
+        out = inner(state, mel, *args, **kw)
+        e1.record()
+        steps.append((e0, e1, out[1]["loss"], mel))
+        return out
+
+    mels = dtrain.discover_mels(out_b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dtrain.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        state = dtrain.train_dvae(cfg.vqvae, tc, mels, os.path.join(root, "dvae_run"),
+                                  device="cuda", params=checkpoint.load_dvae_checkpoint(
+                                      os.path.join(model_dir, "dvae.pth"), cfg.vqvae))
+    finally:
+        dtrain.train_step = inner
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first_embed, steps = steps[0], steps[1:]
+    ms = [a.elapsed_time(b) for a, b, _, _ in steps]
+    losses = torch.stack([x for _, _, x, _ in steps]).cpu()
+    moved = float((state.params["codebook"]["embed"] - first_embed).abs().max())
+    fwd_window, step_flops = dvae_step_flops(cfg.vqvae, tc.batch_size, tc.mel_width)
+    step_ms = float(np.median(ms[1:]))
+    opt = dtrain.make_optimizer(tc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        inner(state, steps[-1][3], cfg.vqvae, opt, tc)
+        torch.cuda.synchronize()
+        wall_step = time.perf_counter() - w0
+    launched = kernel_events(torch, prof.key_averages())
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    busy_us = sum(dev(e) for e in launched)
+    emit({"phase": "DVAE training, the shipped DVAE (8192 codes of 512), DVAETrainConfig "
+                   "defaults (batch 32, width 256), 40 steps, fp32 with TF32 off",
+          "card": card_line(), "mel_files": len(mels), "train_s": train_s,
+          "step_ms_median": step_ms, "step_ms_first": ms[0], "step_ms_min_max": [min(ms),
+                                                                                 max(ms)],
+          "windows_per_s": tc.batch_size / (step_ms / 1e3), "peak_mem_gib": train_peak,
+          "model_gflop_forward_per_window": fwd_window / 1e9,
+          "model_gflop_per_step": step_flops / 1e9,
+          "model_flops_share_fp32_peak": step_flops / (step_ms / 1e3) / FP32_FLOPS,
+          "flops_formula": "per window 3 x convs (forward, activation and weight gradients) "
+                           "- the first conv's input gradient + the quantizer distances "
+                           "2 D N W/4; per step B x that + the EMA's one-hot product "
+                           "2 (B W/4) D N; over 67e12 fp32",
+          "losses_first_last": [float(losses[0]), float(losses[-1])],
+          "codebook_moved_max_abs": moved,
+          "profile_one_step": {"wall_ms": wall_step * 1e3, "device_busy_ms": busy_us / 1e3,
+                               "device_busy_share": busy_us / 1e6 / wall_step,
+                               "kernels": sum(e.count for e in launched),
+                               "top_kernels_device_ms": {
+                                   e.key[:80]: dev(e) / 1e3 for e in
+                                   sorted(launched, key=dev, reverse=True)[:6]}},
+          "checkpoints": sorted(os.listdir(os.path.join(root, "dvae_run")))})
+    if not bool(torch.isfinite(losses).all()) or not moved > 0 or len(ms) != 40:
+        raise SmokeFailure(f"DVAE training: losses {losses.tolist()}, moved {moved}")
+
+    # close the loop: trained dvae.pth -> extraction of one speaker -> the LoRA Trainer
+    model2 = os.path.join(root, "model_trained")
+    os.makedirs(model2)
+    for f in ("vocab.txt", "gpt.pth"):
+        os.link(os.path.join(model_dir, f), os.path.join(model2, f))
+    export.save_dvae_pth(os.path.join(model2, "dvae.pth"), state.params, cfg.vqvae)
+    back = from_jax.dvae_params_from_numpy(
+        checkpoint.load_dvae_checkpoint(os.path.join(model2, "dvae.pth"), cfg.vqvae), cfg.vqvae,
+        device="cuda")
+    round_trip = _trees_equal(torch, back, state.params)
+    list_a = os.path.join(root, "list_a.txt")
+    with open(list_path, encoding="utf-8") as f, open(list_a, "w", encoding="utf-8") as g2:
+        g2.writelines(l for l in f if f"{os.sep}spk_a{os.sep}" in l)
+    out_a = os.path.join(root, "extracted_trained")
+    extract.extract_audio_list(list_a, out_a, cfg, model2, device="cuda")
+    changed = total = 0
+    for f in os.listdir(os.path.join(out_a, "spk_a", "codes")):
+        a = np.load(os.path.join(out_a, "spk_a", "codes", f))
+        b = np.load(os.path.join(out_b, "spk_a", "codes", f))
+        changed, total = changed + int((a != b).sum()), total + a.size
+    del state
+    torch.cuda.empty_cache()
+    tcfg = Config.from_dict({"train": {"epochs": 1, "max_steps_per_epoch": 4,
+                                       "finetune_model_dir": os.path.join(root, "ft"),
+                                       "data_path": out_b}})
+    lora_losses = []
+    inner_lora = trainer.train_step
+
+    def lora_step(*args):
+        out = inner_lora(*args)
+        lora_losses.append(out[1]["loss"])
+        return out
+
+    trainer.train_step = lora_step
+    try:
+        t0 = time.perf_counter()
+        t = run_mod.Trainer(tcfg, model_dir, run_name="extracted", device="cuda")
+        t.train()
+        lora_s = time.perf_counter() - t0
+    finally:
+        trainer.train_step = inner_lora
+    lora_losses = torch.stack(lora_losses).float().cpu()
+    finetuned = os.path.exists(os.path.join(t.out_dir, "gpt_finetuned.pth"))
+    del t
+    torch.cuda.empty_cache()
+    emit({"phase": "the loop closed: trained dvae.pth, one speaker extracted again, the LoRA "
+                   "Trainer at full width on the extracted manifests",
+          "dvae_pth_mb": os.path.getsize(os.path.join(model2, "dvae.pth")) / 2 ** 20,
+          "dvae_pth_round_trip_bit_equal": round_trip,
+          "reextracted_codes": total, "codes_changed_by_training": changed,
+          "lora_micro_steps": len(lora_losses), "lora_losses": lora_losses.tolist(),
+          "lora_s": lora_s, "gpt_finetuned_pth": finetuned})
+    if not round_trip or total == 0 or len(lora_losses) != 4 \
+            or not bool(torch.isfinite(lora_losses).all()) or not finetuned:
+        raise SmokeFailure(f"the loop: round trip {round_trip}, {total} codes, losses "
+                           f"{lora_losses.tolist()}, gpt_finetuned.pth {finetuned}")
+
+    # get_conditioning of each condition type at full width on a 10 s mel
+    mel = torch.randn((1, 100, 938), generator=torch.Generator(device="cuda").manual_seed(23),
+                      device="cuda")
+    lens = torch.tensor([938], device="cuda")
+    cond_ms = {}
+    for ctype in ("conformer_perceiver", "conformer_encoder", "perceiver", "default_mean"):
+        c = Config.from_dict({"gpt": {"condition_type": ctype}}).gpt
+        enc, perc = uv.init_conditioning_params(
+            c, torch.Generator(device="cuda").manual_seed(24), torch.float32, "cuda")
+        params = {"conditioning_encoder": enc, "perceiver_encoder": perc}
+        with torch.no_grad():
+            out = uv.get_conditioning(params, c, mel, lens)
+            cond_ms[ctype] = {"ms": cuda_ms(lambda: uv.get_conditioning(params, c, mel, lens),
+                                            [()], 10, graph=False),
+                              "shape": list(out.shape),
+                              "finite": bool(torch.isfinite(out).all())}
+        del params, enc, perc
+    launched_k = [k.launches for k in kernels]
+    emit({"phase": "get_conditioning, full width (D 1280), fp32, a 10 s mel (938 frames)",
+          "card": card_line(), "per_type": cond_ms, "kernel_launches_in_phase": launched_k,
+          "phase_s": time.perf_counter() - t_phase, "small_checks_s": small_s})
+    if not all(v["finite"] for v in cond_ms.values()) or any(launched_k):
+        raise SmokeFailure(f"get_conditioning: {cond_ms}; K1-K4 launches {launched_k}")
+    shutil.rmtree(root)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2583,6 +3168,9 @@ def main(argv=None) -> int:
                                                            kernels, prompt, beam3)
     n = reload_and_warmup(torch, engine_mod, httpd, kernels, prompt, gpt_pth, checksum)
     launches["fused_anti_alias_activation"] += n["K1"]
+    # the DVAE and extraction slice: its path reaches no kernel, with the
+    # counts at 0 just before it and read just after
+    extract_and_dvae(torch, out_dir)
     # the LoRA fine-tuning slice: its served requests with the counts at 0
     # just before each, read just after
     n = lora_finetune(torch, engine_mod, kernels, prompt, out_dir)

@@ -70,6 +70,11 @@ class ConditionModuleConfig:
     perceiver_mult: int = 2
 
 
+# the condition_types that run the conformer -> perceiver path; the others
+# ("perceiver" and the mean-pooled default) run the legacy encoder
+CONFORMER_CONDITION_TYPES = ("conformer_perceiver", "conformer_encoder")
+
+
 @dataclass(frozen=True)
 class GPTConfig:
     """UnifiedVoice acoustic model (reference: config.yaml:52-74,

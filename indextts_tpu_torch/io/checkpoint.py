@@ -1,8 +1,7 @@
-"""Reference ``.pth`` checkpoints -> the port's numpy parameter trees (the GPT
-and BigVGAN half of indextts_tpu/io/checkpoint.py, kept as the port's own
-copy).
+"""Reference ``.pth`` checkpoints -> the port's numpy parameter trees (the
+port's own copy of indextts_tpu/io/checkpoint.py).
 
-Two reference formats (utils/checkpoint.py:23-89, infer.py:392-393):
+Three reference formats (utils/checkpoint.py:23-89, infer.py:392-393):
 
   * ``gpt.pth``: a UnifiedVoice state_dict, flat or nested under "model" or
     "state_dict", optionally with top-level "speaker_conditions",
@@ -11,13 +10,13 @@ Two reference formats (utils/checkpoint.py:23-89, infer.py:392-393):
   * ``bigvgan_generator.pth``: {"generator": state_dict} with weight-norm
     ``weight_g``/``weight_v`` pairs (or torch's ``parametrizations.weight.
     original0/1``), folded here into plain weights (the reference calls
-    remove_weight_norm() at load, models.py:254-262).
+    remove_weight_norm() at load, models.py:254-262);
+  * ``dvae.pth``: a DiscreteVAE state_dict (xtts_dvae.py:258-298), flat or
+    nested under "model" or "state_dict".
 
 Every tensor becomes float32 numpy at once (fp16 and bf16 saves go through
 torch's fp32 upcast, which numpy cannot do for bf16); `io/from_jax.py` then
-checks the tree against the port's layout and copies it to the device.  Not
-ported: the DVAE converter (ROADMAP item A13, the port has no DVAE model
-yet).
+checks the tree against the port's layout and copies it to the device.
 
 The port's own checkpoint directories (`save_pytree` / `load_pytree`: the
 trainer's resume and merged-weight directories) are an `.npz` of arrays
@@ -37,7 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import BigVGANConfig, GPTConfig
+from indextts_tpu_torch.config import (CONFORMER_CONDITION_TYPES, BigVGANConfig, GPTConfig,
+                                       VQVAEConfig)
 
 
 def _load_torch_state(path: str) -> Any:
@@ -135,13 +135,6 @@ def fold_weight_norm(sd: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _check_condition_type(cfg: GPTConfig) -> None:
-    if cfg.condition_type != "conformer_perceiver":
-        raise NotImplementedError(
-            f"condition_type={cfg.condition_type!r}: only 'conformer_perceiver' is "
-            "ported; the legacy encoders are ROADMAP item A5b")
-
-
 # ---------------------------------------------------------------------------
 # UnifiedVoice (gpt.pth)
 # ---------------------------------------------------------------------------
@@ -149,11 +142,11 @@ def _check_condition_type(cfg: GPTConfig) -> None:
 def convert_gpt_state_dict(sd: Dict[str, Any], cfg: GPTConfig) -> Dict[str, Any]:
     """Reference UnifiedVoice state_dict -> parameter tree (numpy leaves).
 
-    Key families (gpt/model.py:312-392): conditioning_encoder (conformer),
-    perceiver_encoder, text/mel embeddings, per-stream position embeddings,
-    gpt.h.* trunk (HF Conv1D [in, out] layout, no transpose), final_norm,
-    text/mel heads (nn.Linear [out, in], transposed here)."""
-    _check_condition_type(cfg)
+    Key families (gpt/model.py:312-392): conditioning_encoder (the conformer,
+    or the legacy AttentionBlock encoder), perceiver_encoder, text/mel
+    embeddings, per-stream position embeddings, gpt.h.* trunk (HF Conv1D
+    [in, out] layout, no transpose), final_norm, text/mel heads (nn.Linear
+    [out, in], transposed here)."""
     sd = _SDView({k: v for k, v in _strip_module_prefix(sd).items()
                   if not k.startswith("inference_model.")},
                  "UnifiedVoice (gpt.pth)")
@@ -189,6 +182,31 @@ def convert_gpt_state_dict(sd: Dict[str, Any], cfg: GPTConfig) -> Dict[str, Any]
     }
 
     ce = "conditioning_encoder."
+    if cfg.condition_type not in CONFORMER_CONDITION_TYPES:
+        # the legacy AttentionBlock encoder of "perceiver" and the mean-pooled
+        # default (arch_util.py:84-126); conv1d kernels are [out, in, 1]
+        n_attn = len({k.split(".")[2] for k in sd if k.startswith(ce + "attn.")})
+
+        def pointwise1(k):
+            return {"w": g(ce + k + ".weight")[:, :, 0], "b": g(ce + k + ".bias")}
+
+        cond_params = {
+            "init": pointwise1("init"),
+            "attn": [{"norm": {"scale": g(ce + f"attn.{i}.norm.weight"),
+                               "bias": g(ce + f"attn.{i}.norm.bias")},
+                      "qkv": pointwise1(f"attn.{i}.qkv"),
+                      "proj": pointwise1(f"attn.{i}.proj_out")}
+                     for i in range(n_attn)],
+        }
+        out = {
+            "conditioning_encoder": cond_params,
+            "perceiver_encoder": (_convert_perceiver(sd) if cfg.condition_type == "perceiver"
+                                  else {}),
+            **_embed_and_heads(g),
+            "gpt": gpt_params,
+        }
+        sd.warn_leftovers(_IGNORE)
+        return out
     CL = cfg.condition_module.num_blocks
 
     def cstack(fmt: str, transpose: bool = False) -> np.ndarray:
@@ -345,15 +363,52 @@ def load_gpt_checkpoint(path: str, cfg: GPTConfig) -> Tuple[Dict[str, Any], Dict
 
 
 # ---------------------------------------------------------------------------
-# DVAE (dvae.pth): the port has no DVAE model yet
+# DVAE (dvae.pth)
 # ---------------------------------------------------------------------------
 
-def convert_dvae_state_dict(sd: Dict[str, Any], cfg: Any) -> Dict[str, Any]:
-    raise NotImplementedError("the DVAE converter is ROADMAP item A13")
+def convert_dvae_state_dict(sd: Dict[str, Any], cfg: VQVAEConfig) -> Dict[str, Any]:
+    """DiscreteVAE state_dict -> parameter tree (layer indices of
+    xtts_dvae.py:258-298 at the shipped config: encoder.0-1 the stride-2
+    convs, then the residual blocks and the output conv; decoder.0 the input
+    conv, then the residual blocks, two upsampled convs and the output)."""
+    sd = _SDView(_strip_module_prefix(dict(sd)), "DiscreteVAE (dvae.pth)")
+    g = lambda k: _to_np(sd[k])  # noqa: E731
+    n_res = cfg.num_resnet_blocks
+
+    def conv(key: str) -> Dict[str, np.ndarray]:
+        return {"w": g(key + ".weight"), "b": g(key + ".bias")}
+
+    def res(prefix: str, first: int) -> Dict[str, Any]:
+        idx = range(first, first + n_res)
+        return {name: {"w": np.stack([g(f"{prefix}.{i}.net.{j}.weight") for i in idx]),
+                       "b": np.stack([g(f"{prefix}.{i}.net.{j}.bias") for i in idx])}
+                for name, j in (("c1", 0), ("c2", 2), ("c3", 4))}
+
+    out = {
+        "enc_conv0": conv("encoder.0.0"),
+        "enc_conv1": conv("encoder.1.0"),
+        "enc_res": res("encoder", 2),
+        "enc_out": conv(f"encoder.{2 + n_res}"),
+        "codebook": {"embed": g("codebook.embed"), "cluster_size": g("codebook.cluster_size"),
+                     "embed_avg": g("codebook.embed_avg")},
+        "dec_in": conv("decoder.0"),
+        "dec_res": res("decoder", 1),
+        "dec_up0": conv(f"decoder.{1 + n_res}.0.conv"),
+        "dec_up1": conv(f"decoder.{2 + n_res}.0.conv"),
+        "dec_out": conv(f"decoder.{3 + n_res}"),
+    }
+    sd.warn_leftovers((r"\.initted$", r"^codebook\.initted"))
+    return out
 
 
-def load_dvae_checkpoint(path: str, cfg: Any = None) -> Dict[str, Any]:
-    raise NotImplementedError("loading dvae.pth is ROADMAP item A13")
+def load_dvae_checkpoint(path: str, cfg: Optional[VQVAEConfig] = None) -> Dict[str, Any]:
+    """A reference dvae.pth -> the DVAE parameter tree (float32 numpy)."""
+    cfg = cfg or VQVAEConfig()
+    ckpt = _load_torch_state(path)
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"{path}: expected a dict checkpoint, got {type(ckpt).__name__}")
+    sd = next((ckpt[n] for n in ("model", "state_dict") if n in ckpt), ckpt)
+    return convert_dvae_state_dict(sd, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's parameter trees -> reference-format ``.pth`` files (the GPT and
-BigVGAN half of indextts_tpu/io/export.py, kept as the port's own copy).
+"""The port's parameter trees -> reference-format ``.pth`` files (the port's
+own copy of indextts_tpu/io/export.py).
 
 The inverse of `io/checkpoint.py`'s converters, so weights the port holds
 can be deployed on the reference stack, or loaded by the JAX package:
@@ -9,10 +9,10 @@ can be deployed on the reference stack, or loaded by the JAX package:
     / ``speakers`` / ``speaker_mels`` (train.py:795-844), which the
     reference loads with ``strict=True`` (train.py:67-75);
   * ``save_bigvgan_pth`` writes ``{'generator': state_dict}`` with the
-    weight-norm ``weight_g``/``weight_v`` splits restored (infer.py:392-393).
+    weight-norm ``weight_g``/``weight_v`` splits restored (infer.py:392-393);
+  * ``save_dvae_pth`` writes the DiscreteVAE state_dict (xtts_dvae.py:258-298).
 
 The input is a float tree of torch tensors on any device (or numpy arrays).
-DVAE export is ROADMAP item A13, with the port's DVAE model.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import BigVGANConfig, GPTConfig
+from indextts_tpu_torch.config import (CONFORMER_CONDITION_TYPES, BigVGANConfig, GPTConfig,
+                                       VQVAEConfig)
 
 _SAVE_DTYPES = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -58,10 +59,6 @@ def export_gpt_state_dict(params: Dict[str, Any], cfg: GPTConfig) -> Dict[str, n
     """Parameter tree -> reference-named flat dict (fp32 numpy).  HF Conv1D
     trunk weights keep their [in, out] layout; nn.Linear heads are
     transposed back to [out, in] (gpt/model.py:312-392)."""
-    if cfg.condition_type != "conformer_perceiver":
-        raise NotImplementedError(
-            f"condition_type={cfg.condition_type!r}: only 'conformer_perceiver' is "
-            "ported; the legacy encoders are ROADMAP item A5b")
     sd: Dict[str, np.ndarray] = {}
     blocks = params["gpt"]["blocks"]
     L = cfg.layers
@@ -100,8 +97,26 @@ def export_gpt_state_dict(params: Dict[str, Any], cfg: GPTConfig) -> Dict[str, n
     sd["mel_head.weight"] = _np(params["mel_head"]["kernel"]).T
     sd["mel_head.bias"] = _np(params["mel_head"]["bias"])
 
-    _export_conformer(sd, "conditioning_encoder.", params["conditioning_encoder"], cfg)
-    _export_perceiver(sd, params["perceiver_encoder"])
+    ce = "conditioning_encoder."
+    cond = params["conditioning_encoder"]
+    if cfg.condition_type in CONFORMER_CONDITION_TYPES:
+        _export_conformer(sd, ce, cond, cfg)
+        _export_perceiver(sd, params["perceiver_encoder"])
+        return sd
+    # the legacy AttentionBlock encoder (arch_util.py:84-126): the 1x1 convs
+    # regain their trailing length-1 axis
+    def pointwise1(key: str, p: Dict[str, Any]) -> None:
+        sd[ce + key + ".weight"] = _np(p["w"])[:, :, None]
+        sd[ce + key + ".bias"] = _np(p["b"])
+
+    pointwise1("init", cond["init"])
+    for i, blk in enumerate(cond["attn"]):
+        sd[ce + f"attn.{i}.norm.weight"] = _np(blk["norm"]["scale"])
+        sd[ce + f"attn.{i}.norm.bias"] = _np(blk["norm"]["bias"])
+        pointwise1(f"attn.{i}.qkv", blk["qkv"])
+        pointwise1(f"attn.{i}.proj_out", blk["proj"])
+    if params.get("perceiver_encoder"):
+        _export_perceiver(sd, params["perceiver_encoder"])
     return sd
 
 
@@ -305,6 +320,44 @@ def save_bigvgan_pth(path: str, params: Dict[str, Any], cfg: Optional[BigVGANCon
     return path
 
 
-def save_dvae_pth(path: str, params: Dict[str, Any], cfg: Any = None,
+# ---------------------------------------------------------------------------
+# DVAE (dvae.pth)
+# ---------------------------------------------------------------------------
+
+def export_dvae_state_dict(params: Dict[str, Any], cfg: VQVAEConfig) -> Dict[str, np.ndarray]:
+    """Inverse of checkpoint.convert_dvae_state_dict (the layer indices of
+    xtts_dvae.py:258-298 at the shipped config)."""
+    sd: Dict[str, np.ndarray] = {}
+    n_res = cfg.num_resnet_blocks
+
+    def conv(key: str, p: Dict[str, Any]) -> None:
+        sd[key + ".weight"] = _np(p["w"])
+        sd[key + ".bias"] = _np(p["b"])
+
+    def res(prefix: str, first: int, blk: Dict[str, Any]) -> None:
+        for name, j in (("c1", 0), ("c2", 2), ("c3", 4)):
+            w, b = _np(blk[name]["w"]), _np(blk[name]["b"])
+            for n in range(n_res):
+                sd[f"{prefix}.{first + n}.net.{j}.weight"] = w[n]
+                sd[f"{prefix}.{first + n}.net.{j}.bias"] = b[n]
+
+    conv("encoder.0.0", params["enc_conv0"])
+    conv("encoder.1.0", params["enc_conv1"])
+    res("encoder", 2, params["enc_res"])
+    conv(f"encoder.{2 + n_res}", params["enc_out"])
+    for k in ("embed", "cluster_size", "embed_avg"):
+        sd[f"codebook.{k}"] = _np(params["codebook"][k])
+    conv("decoder.0", params["dec_in"])
+    res("decoder", 1, params["dec_res"])
+    conv(f"decoder.{1 + n_res}.0.conv", params["dec_up0"])
+    conv(f"decoder.{2 + n_res}.0.conv", params["dec_up1"])
+    conv(f"decoder.{3 + n_res}", params["dec_out"])
+    return sd
+
+
+def save_dvae_pth(path: str, params: Dict[str, Any], cfg: Optional[VQVAEConfig] = None,
                   save_dtype: str = "fp32") -> str:
-    raise NotImplementedError("DVAE export is ROADMAP item A13")
+    """Write the DiscreteVAE state_dict, flat, as the reference's dvae.pth."""
+    cfg = cfg or VQVAEConfig()
+    torch.save(_to_torch_sd(export_dvae_state_dict(params, cfg), save_dtype), path)
+    return path

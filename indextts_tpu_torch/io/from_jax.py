@@ -17,8 +17,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import BigVGANConfig, GPTConfig, LoRAConfig
-from indextts_tpu_torch.models import bigvgan, unified_voice
+from indextts_tpu_torch.config import BigVGANConfig, GPTConfig, LoRAConfig, VQVAEConfig
+from indextts_tpu_torch.models import bigvgan, dvae, unified_voice
 from indextts_tpu_torch.train import lora
 
 
@@ -78,7 +78,9 @@ def _layout(init_fn, *args):
 
 def gpt_params_from_numpy(tree: Any, cfg: GPTConfig, dtype: Optional[torch.dtype] = None,
                           device="cpu"):
-    """UnifiedVoice parameters from the JAX package's numpy tree."""
+    """UnifiedVoice parameters from the JAX package's numpy tree, for every
+    condition_type (the legacy trees hold `conditioning_encoder.init`, a
+    list `attn`, and an empty `perceiver_encoder` when mean-pooled)."""
     return _convert(tree, _layout(unified_voice.init_params, cfg), dtype, device)
 
 
@@ -86,6 +88,13 @@ def bigvgan_params_from_numpy(tree: Any, cfg: BigVGANConfig,
                               dtype: Optional[torch.dtype] = None, device="cpu"):
     """BigVGAN parameters from the JAX package's numpy tree."""
     return _convert(tree, _layout(bigvgan.init_params, cfg), dtype, device)
+
+
+def dvae_params_from_numpy(tree: Any, cfg: VQVAEConfig, dtype: Optional[torch.dtype] = None,
+                           device="cpu"):
+    """DVAE parameters (models/dvae.py's layout) from a numpy tree: the JAX
+    package's, or io/checkpoint.load_dvae_checkpoint's."""
+    return _convert(tree, dvae.init_params(cfg, None, torch.float32, "meta"), dtype, device)
 
 
 def lora_params_from_numpy(tree: Any, cfg: GPTConfig, lora_cfg: LoRAConfig, device="cpu"):

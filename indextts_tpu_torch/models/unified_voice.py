@@ -17,13 +17,15 @@ are trained against this numbering.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import GPTConfig
+from indextts_tpu_torch.config import CONFORMER_CONDITION_TYPES, GPTConfig
 from indextts_tpu_torch.models import conformer, gpt2, perceiver
+from indextts_tpu_torch.models import legacy_conditioning as legacy
 from indextts_tpu_torch.models.gpt2 import GPT2Size, layer_norm
 from indextts_tpu_torch.ops import beam as beam_lib
 from indextts_tpu_torch.ops import quantization, sampling
@@ -50,16 +52,29 @@ def perceiver_size(cfg: GPTConfig) -> perceiver.PerceiverSize:
                                    num_latents=cfg.condition_num_latent)
 
 
-def _check_condition_type(cfg: GPTConfig) -> None:
-    if cfg.condition_type != "conformer_perceiver":
-        raise NotImplementedError(
-            f"condition_type={cfg.condition_type!r}: only 'conformer_perceiver' is "
-            "ported; the legacy encoders are ROADMAP item A5b")
+def legacy_perceiver_size(cfg: GPTConfig) -> perceiver.PerceiverSize:
+    """The condition_type="perceiver" resampler: context width D, ff_mult 4,
+    8 heads (gpt/model.py:221-245)."""
+    return dataclasses.replace(perceiver_size(cfg), dim_context=cfg.model_dim, ff_mult=4,
+                               heads=8)
+
+
+def init_conditioning_params(cfg: GPTConfig, generator, dtype=torch.float32, device="cpu"):
+    """(conditioning_encoder, perceiver_encoder) for the config's
+    condition_type: the conformer and perceiver for both conformer types,
+    the legacy encoder and a perceiver over D for "perceiver", and the
+    legacy encoder alone (an empty perceiver) for the mean-pooled rest."""
+    if cfg.condition_type in CONFORMER_CONDITION_TYPES:
+        return (conformer.init_params(conformer_size(cfg), generator, dtype, device),
+                perceiver.init_params(perceiver_size(cfg), generator, dtype, device))
+    cond = legacy.init_conditioning_encoder(100, cfg.model_dim, generator, 6, dtype, device)
+    if cfg.condition_type == "perceiver":
+        return cond, perceiver.init_params(legacy_perceiver_size(cfg), generator, dtype, device)
+    return cond, {}
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator, dtype=torch.float32,
                 device="cpu") -> Dict[str, Any]:
-    _check_condition_type(cfg)
     D = cfg.model_dim
     n_text = cfg.number_text_tokens * cfg.types + 1
 
@@ -69,11 +84,10 @@ def init_params(cfg: GPTConfig, generator: torch.Generator, dtype=torch.float32,
     def zeros(n):
         return torch.zeros(n, dtype=dtype, device=device)
 
+    cond, perc = init_conditioning_params(cfg, generator, dtype, device)
     return {
-        "conditioning_encoder": conformer.init_params(conformer_size(cfg), generator, dtype,
-                                                      device),
-        "perceiver_encoder": perceiver.init_params(perceiver_size(cfg), generator, dtype,
-                                                   device),
+        "conditioning_encoder": cond,
+        "perceiver_encoder": perc,
         "text_embedding": {"weight": nrm((n_text, D))},
         "mel_embedding": {"weight": nrm((cfg.number_mel_codes, D))},
         "mel_pos_embedding": {"weight": nrm((cfg.max_mel_seq_len, D))},
@@ -88,18 +102,30 @@ def init_params(cfg: GPTConfig, generator: torch.Generator, dtype=torch.float32,
 
 def get_conditioning(params: Dict[str, Any], cfg: GPTConfig, cond_mel: torch.Tensor,
                      cond_mel_lengths: torch.Tensor) -> torch.Tensor:
-    """cond_mel [B, n_mels, T] -> conditioning latents [B, 32, D]
-    (reference gpt/model.py:487-546), in the parameters' type."""
-    _check_condition_type(cfg)
+    """cond_mel [B, n_mels, T] -> conditioning latents (reference
+    gpt/model.py:487-546), in the parameters' type: [B, 32, D] for the
+    conformer and perceiver types, [B, 1, D] for the mean-pooled default.
+    The legacy encoders see every frame, as in JAX (no length mask)."""
     B = cond_mel.shape[0]
-    wdtype = params["conditioning_encoder"]["embed"]["conv"]["w"].dtype
-    enc, valid = conformer.forward(params["conditioning_encoder"],
-                                   cond_mel.to(wdtype).transpose(1, 2), cond_mel_lengths,
-                                   conformer_size(cfg))
-    # queries prepended to the context mask (gpt/model.py:346,528)
-    mask = torch.cat([torch.ones(B, cfg.condition_num_latent, dtype=torch.bool,
-                                 device=valid.device), valid], dim=1)
-    return perceiver.forward(params["perceiver_encoder"], enc, mask, perceiver_size(cfg))
+    enc_params = params["conditioning_encoder"]
+    wdtype = (enc_params["init"]["w"] if "init" in enc_params
+              else enc_params["embed"]["conv"]["w"]).dtype
+    cond_mel = cond_mel.to(wdtype)
+    if cfg.condition_type in CONFORMER_CONDITION_TYPES:
+        enc, valid = conformer.forward(params["conditioning_encoder"], cond_mel.transpose(1, 2),
+                                       cond_mel_lengths, conformer_size(cfg))
+        # queries prepended to the context mask (gpt/model.py:346,528)
+        mask = torch.cat([torch.ones(B, cfg.condition_num_latent, dtype=torch.bool,
+                                     device=valid.device), valid], dim=1)
+        return perceiver.forward(params["perceiver_encoder"], enc, mask, perceiver_size(cfg))
+    if cfg.condition_type == "perceiver":
+        enc = legacy.conditioning_encoder(params["conditioning_encoder"], cond_mel, cfg.heads)
+        return perceiver.forward(params["perceiver_encoder"], enc.transpose(1, 2), None,
+                                 legacy_perceiver_size(cfg))
+    # mean-pooled default (gpt/model.py:534-545)
+    pooled = legacy.conditioning_encoder(params["conditioning_encoder"], cond_mel, cfg.heads,
+                                         mean=True)
+    return pooled[:, None, :]
 
 
 # the heads take every weight form the trunk does

@@ -5,7 +5,8 @@ hop_length=256, win_length=1024, power=1, center=True, n_mels=100)``
 followed by ``safe_log`` = log(clamp(x, 1e-7)), the reference extractor
 (indextts/utils/feature_extractors.py:26-68):
 
-  * centered frames, reflect padding of n_fft//2 on both sides;
+  * centered frames, reflect padding of n_fft//2 on both sides (or the
+    caller's own padding with center=False);
   * periodic Hann window;
   * magnitude spectrum (power 1);
   * HTK mel filterbank without normalisation, built in numpy.
@@ -55,18 +56,30 @@ def _hann_window(win_length: int, n_fft: int) -> np.ndarray:
     return np.pad(w, (lpad, n_fft - win_length - lpad))
 
 
+def frame_signal(audio: torch.Tensor, n_fft: int, hop_length: int,
+                 center: bool = True) -> torch.Tensor:
+    """Reflect-pad n_fft//2 on both sides (center=True) and frame:
+    [..., T] -> [..., F, n_fft].  With center=False the caller has padded
+    already (the batched extractor reflect-pads each clip on the host, so a
+    zero-padded batch tail never leaks into a clip's frames)."""
+    if center:
+        lead = audio.shape[:-1]
+        x = audio.reshape(-1, 1, audio.shape[-1])
+        pad = n_fft // 2
+        audio = F.pad(x, (pad, pad), mode="reflect")[:, 0].reshape(*lead, -1)
+    return audio.unfold(-1, n_fft, hop_length)
+
+
 def spectrogram(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
-                win_length: int = 1024) -> torch.Tensor:
-    """Magnitude STFT with centered reflect-padded frames:
-    [..., T] -> [..., n_freqs, frames], fp32."""
-    x = audio.float()
-    lead = x.shape[:-1]
-    x = x.reshape(-1, 1, x.shape[-1])
-    x = F.pad(x, (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
-    frames = x.unfold(-1, n_fft, hop_length)                 # [N, F, n_fft]
-    window = torch.as_tensor(_hann_window(win_length, n_fft), device=x.device)
-    mag = torch.fft.rfft(frames * window, dim=-1).abs()      # [N, F, n_freqs]
-    return mag.transpose(-1, -2).reshape(*lead, n_fft // 2 + 1, -1)
+                win_length: int = 1024, power: float = 1.0,
+                center: bool = True) -> torch.Tensor:
+    """Magnitude (power=1) STFT: [..., T] -> [..., n_freqs, frames], fp32."""
+    frames = frame_signal(audio.float(), n_fft, hop_length, center)   # [..., F, n_fft]
+    window = torch.as_tensor(_hann_window(win_length, n_fft), device=frames.device)
+    mag = torch.fft.rfft(frames * window, dim=-1).abs()               # [..., F, n_freqs]
+    if power != 1.0:
+        mag = mag ** power
+    return mag.transpose(-1, -2)
 
 
 def safe_log(x: torch.Tensor, clip_val: float = 1e-7) -> torch.Tensor:

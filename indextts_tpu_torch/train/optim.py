@@ -1,5 +1,14 @@
-"""The trainer's optimizer as explicit state: the optax chain of the JAX
-package's `make_optimizer` (indextts_tpu/train/trainer.py:50-81) written out.
+"""The trainers' optimizers as explicit state: optax chains written out.
+
+`AdamW` is the DVAE trainer's chain (indextts_tpu/train/dvae.py:69-73),
+over any nested tree:
+
+    clip_by_global_norm(max_grad_norm)
+    -> adamw(warmup_cosine_decay_schedule(0, lr, warmup, decay_steps),
+             weight_decay), decay on every leaf, biases too
+
+`LoRAPlusAdamW` is the LoRA trainer's (indextts_tpu/train/trainer.py:50-81)
+on the same core:
 
     clip_by_global_norm(max_grad_norm)
     -> AdamW per LoRA+ group: `a` at the base rate, `b` at rate x
@@ -9,14 +18,14 @@ package's `make_optimizer` (indextts_tpu/train/trainer.py:50-81) written out.
 
 The formulas are optax's, not torch.optim's: the clip has no epsilon
 (`g` if |g| < max, else g / |g| * max); weight decay joins the Adam
-direction before the -lr scale; the schedule is read at the group's count
-before its increment, so the first update has lr 0; and, as MultiSteps
-does, the inner update runs on every call and is kept only on the k-th.
-Everything stays on the device: a step has no host sync.
+direction before the -lr scale; the schedule is read at the count before
+its increment, so the first update has lr 0 after a warmup; and, as
+MultiSteps does, the inner update runs on every call and is kept only on
+the k-th.  Everything stays on the device: a step has no host sync.
 
 The state is a plain tree of tensors, so a checkpoint restores it exactly:
     {"count": int32, "mu": tree, "nu": tree}  (+ "mini_step", "acc" for k > 1)
-The two groups update in lockstep, so one count serves both.
+LoRA+'s two groups update in lockstep, so one count serves both.
 """
 
 from __future__ import annotations
@@ -48,44 +57,51 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-class LoRAPlusAdamW:
-    """`init(params) -> state` and `step(grads, state, params) -> (params,
-    state)` over a LoRA tree {target: {"a", "b"}} of fp32 tensors."""
+def warmup_cosine(count: torch.Tensor, peak: float, warmup: int,
+                  decay_steps: int) -> torch.Tensor:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, decay_steps, 0)
+    at `count`, in fp32: linear from 0 over the warmup, then a cosine to 0
+    (no warmup leg when warmup is 0, as optax's join of the two)."""
+    W = float(warmup)
+    span = float(decay_steps - warmup)
+    c = count.float()
+    c2 = torch.clamp(c - W, max=span)
+    cosine = peak * (0.5 * (1 + torch.cos(math.pi * c2 / span)))
+    if warmup <= 0:
+        return cosine
+    warm = (0.0 - peak) * (1 - c.clamp(0, W) / W) + peak
+    return torch.where(c < W, warm, cosine)
 
-    def __init__(self, train_cfg: TrainConfig, total_steps: int):
-        """`total_steps` counts optimizer updates, not micro-steps."""
-        opt = train_cfg.optimizer
-        self.max_grad_norm = float(train_cfg.max_grad_norm)
-        self.k = max(1, int(train_cfg.gradient_accumulation_steps))
-        self.warmup = max(1, int(total_steps * opt.warmup_ratio))
-        self.decay_steps = max(total_steps, self.warmup + 1)
-        self.peak = {"a": float(opt.learning_rate),
-                     "b": float(opt.learning_rate) * float(opt.loraplus_lr_ratio)}
-        self.weight_decay = float(opt.weight_decay)
+
+class AdamW:
+    """`init(params) -> state` and `step(grads, state, params) -> (params,
+    state)`: clip by the global norm, then AdamW on one warmup-cosine
+    schedule for every leaf of a nested tree of fp32 tensors."""
+
+    def __init__(self, lr: float, warmup_steps: int, decay_steps: int,
+                 weight_decay: float, max_grad_norm: float = 1.0):
+        self.lr = float(lr)
+        self.warmup = int(warmup_steps)
+        self.decay_steps = int(decay_steps)
+        self.weight_decay = float(weight_decay)
+        self.max_grad_norm = float(max_grad_norm)
 
     def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
         dev = tree_leaves(params)[0].device
-        state = {"count": torch.zeros((), dtype=torch.int32, device=dev),
-                 "mu": tree_map(torch.zeros_like, params),
-                 "nu": tree_map(torch.zeros_like, params)}
-        if self.k > 1:
-            state["mini_step"] = torch.zeros((), dtype=torch.int32, device=dev)
-            state["acc"] = tree_map(torch.zeros_like, params)
-        return state
+        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
 
-    def learning_rate(self, count: torch.Tensor, group: str) -> torch.Tensor:
-        """optax.warmup_cosine_decay_schedule(0, peak, warmup, decay_steps, 0)
-        at `count`, in fp32: linear from 0 over the warmup, then a cosine to 0."""
-        peak, W = self.peak[group], float(self.warmup)
-        span = float(self.decay_steps - self.warmup)
-        c = count.float()
-        warm = (0.0 - peak) * (1 - c.clamp(0, W) / W) + peak
-        c2 = torch.clamp(c - W, max=span)
-        cosine = peak * (0.5 * (1 + torch.cos(math.pi * c2 / span)))
-        return torch.where(c < W, warm, cosine)
+    def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        return warmup_cosine(count, self.lr, self.warmup, self.decay_steps)
+
+    def _rates(self, count: torch.Tensor, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Each leaf's learning rate at `count`."""
+        lr = self.learning_rate(count)
+        return tree_map(lambda _: lr, params)
 
     def _inner(self, grads, state, params):
-        """clip -> AdamW per group -> (updates, new count, mu, nu)."""
+        """clip -> AdamW -> (updates, new count, mu, nu)."""
         norm = global_norm(grads)
         keep = norm < self.max_grad_norm
         grads = tree_map(lambda g: torch.where(keep, g, (g / norm) * self.max_grad_norm),
@@ -95,26 +111,58 @@ class LoRAPlusAdamW:
         one = torch.ones((), dtype=torch.float32, device=count.device)
         bc1 = 1 - (one * B1) ** count_inc.float()
         bc2 = 1 - (one * B2) ** count_inc.float()
-        lrs = {g: self.learning_rate(count, g) for g in self.peak}
-        labels = loraplus_labels(params)
-        mu, nu, upd = {}, {}, {}
-        for name in params:
-            mu[name], nu[name], upd[name] = {}, {}, {}
-            for leaf, p in params[name].items():
-                g = grads[name][leaf]
-                m = (1 - B1) * g + B1 * state["mu"][name][leaf]
-                v = (1 - B2) * (g * g) + B2 * state["nu"][name][leaf]
-                u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
-                u = u + self.weight_decay * p
-                mu[name][leaf], nu[name][leaf] = m, v
-                upd[name][leaf] = (-lrs[labels[name][leaf]]) * u
+
+        def leaf(g, mu, nu, p, lr):
+            m = (1 - B1) * g + B1 * mu
+            v = (1 - B2) * (g * g) + B2 * nu
+            u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+            u = u + self.weight_decay * p
+            return m, v, (-lr) * u
+
+        out = tree_map(leaf, grads, state["mu"], state["nu"], params,
+                       self._rates(count, params))
+        mu, nu, upd = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
         return upd, count_inc, mu, nu
 
     def step(self, grads: Dict[str, Any], state: Dict[str, Any],
              params: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        upd, count, mu, nu = self._inner(grads, state, params)
+        return tree_map(torch.add, params, upd), {"count": count, "mu": mu, "nu": nu}
+
+
+class LoRAPlusAdamW(AdamW):
+    """`init(params) -> state` and `step(grads, state, params) -> (params,
+    state)` over a LoRA tree {target: {"a", "b"}} of fp32 tensors."""
+
+    def __init__(self, train_cfg: TrainConfig, total_steps: int):
+        """`total_steps` counts optimizer updates, not micro-steps."""
+        opt = train_cfg.optimizer
+        warmup = max(1, int(total_steps * opt.warmup_ratio))
+        super().__init__(opt.learning_rate, warmup, max(total_steps, warmup + 1),
+                         opt.weight_decay, train_cfg.max_grad_norm)
+        self.k = max(1, int(train_cfg.gradient_accumulation_steps))
+        self.peak = {"a": float(opt.learning_rate),
+                     "b": float(opt.learning_rate) * float(opt.loraplus_lr_ratio)}
+
+    def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        state = super().init(params)
+        if self.k > 1:
+            state["mini_step"] = torch.zeros((), dtype=torch.int32,
+                                             device=state["count"].device)
+            state["acc"] = tree_map(torch.zeros_like, params)
+        return state
+
+    def learning_rate(self, count: torch.Tensor, group: str) -> torch.Tensor:
+        return warmup_cosine(count, self.peak[group], self.warmup, self.decay_steps)
+
+    def _rates(self, count: torch.Tensor, params: Dict[str, Any]) -> Dict[str, Any]:
+        lrs = {g: self.learning_rate(count, g) for g in self.peak}
+        return tree_map(lambda label: lrs[label], loraplus_labels(params))
+
+    def step(self, grads: Dict[str, Any], state: Dict[str, Any],
+             params: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         if self.k == 1:
-            upd, count, mu, nu = self._inner(grads, state, params)
-            return tree_map(torch.add, params, upd), {"count": count, "mu": mu, "nu": nu}
+            return super().step(grads, state, params)
         n = state["mini_step"]
         acc = tree_map(lambda g, a: a + (g - a) / (n + 1), grads, state["acc"])
         upd, count, mu, nu = self._inner(acc, state, params)

@@ -41,7 +41,18 @@ def test_get_conditioning_matches_jax(setup, lengths):
 
 
 def test_legacy_condition_types_raise(setup):
-    _, tcfg, _, _ = setup
-    cfg = GPTConfig.from_dict({**TINY, "condition_type": "perceiver"})
-    with pytest.raises(NotImplementedError, match="A5b"):
-        uv.init_params(cfg, torch.Generator().manual_seed(0))
+    """The legacy condition types raised NotImplementedError until the port
+    had their encoders; now they initialise in JAX's layout and condition
+    ([B, 32, D] for "perceiver", [B, 1, D] mean-pooled), as in JAX.  Their
+    values against JAX's are tests/test_torch_legacy_conditioning.py's."""
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 100, 40))
+                           .astype(np.float32))
+    for ctype, latents in (("perceiver", 32), ("default_mean", 1)):
+        cfg = GPTConfig.from_dict({**TINY, "condition_type": ctype})
+        jcfg = jax_config.GPTConfig.from_dict({**TINY, "condition_type": ctype})
+        params = uv.init_params(cfg, torch.Generator().manual_seed(0))
+        shapes = jax.eval_shape(lambda: jax_uv.init_params(jax.random.PRNGKey(0), jcfg))
+        assert jax.tree.map(lambda x: tuple(x.shape), params) == \
+            jax.tree.map(lambda x: tuple(x.shape), shapes)
+        out = uv.get_conditioning(params, cfg, mel, torch.tensor([40, 40]))
+        assert tuple(out.shape) == (2, latents, 64) and torch.isfinite(out).all()

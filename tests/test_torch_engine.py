@@ -4,6 +4,7 @@ entry point, and the port's independence from JAX and from the JAX
 package."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -245,22 +246,22 @@ def test_default_device_is_cuda_and_raises_without_it(engines):
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
-    code = ("import sys; before = set(sys.modules); import indextts_tpu_torch.engine, "
-            "indextts_tpu_torch.cli, indextts_tpu_torch.ops.beam, "
-            "indextts_tpu_torch.ops.quantization, indextts_tpu_torch.ops.cuda.permute, "
-            "indextts_tpu_torch.ops.cuda.decode_layer, indextts_tpu_torch.ops.cuda.pool_trunk, "
-            "indextts_tpu_torch.serve.scheduler, indextts_tpu_torch.serve.httpd, "
-            "indextts_tpu_torch.serve.beam_pool, indextts_tpu_torch.io.checkpoint, "
-            "indextts_tpu_torch.io.export, indextts_tpu_torch.io.from_jax, "
-            "indextts_tpu_torch.data.dataset, indextts_tpu_torch.data.native_index, "
-            "indextts_tpu_torch.train.lora, indextts_tpu_torch.train.optim, "
-            "indextts_tpu_torch.train.trainer, indextts_tpu_torch.train.run; "
+    """Every module of the port, found by walking the package, imported in a
+    fresh interpreter: none of them loads jax, jaxlib or indextts_tpu."""
+    code = ("import importlib, json, pkgutil, sys; before = set(sys.modules); "
+            "import indextts_tpu_torch as pkg; "
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
             "new = set(sys.modules) - before; "
-            "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'indextts_tpu')))")
+            "print(json.dumps({'walked': names, 'leaked': sorted(m for m in new if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'indextts_tpu'))}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "[]"
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["leaked"] == []
+    for name in ("engine", "io.checkpoint", "serve.httpd", "train.run", "models.dvae",
+                 "data.extract", "train.dvae", "models.legacy_conditioning"):
+        assert f"indextts_tpu_torch.{name}" in result["walked"], name
 
 
 def _port_files():
