@@ -2677,11 +2677,17 @@ def extract_small_agreement(torch, out_dir: str) -> None:
       speaker_info.json byte-equal, mels within 1e-4, the medoid
       conditioning within 1e-4 relative, codes equal wherever the CPU's two
       nearest columns are more than 1e-4 apart (at most 1% exempt); a planted
-      fault, the most used codebook column swapped with the least used on
-      the card, must part the codes;
+      fault, a dvae.pth with the most used codebook column swapped with the
+      least used, must part the codes;
     - three DVAE train steps (rebalance every 2, lr 1e-5, the same normal
-      draws): metrics within 1e-5 relative, codebooks within 1e-5;
-    - get_conditioning of each condition type within 1e-4 relative."""
+      draws): metrics within 1e-5 relative, codebooks and the encoder's and
+      decoder's parameters within 1e-5 of each leaf's largest magnitude;
+    - get_conditioning of each condition type within 1e-4 relative.
+    The extraction and the train steps run with TF32 on in the global flags
+    (for cuDNN and cuBLAS alike), so the checks hold the extractor's and the
+    train step's own TF32 guards; the flags are restored afterwards."""
+    import shutil
+
     import numpy as np
 
     from indextts_tpu_torch.config import Config
@@ -2707,53 +2713,63 @@ def extract_small_agreement(torch, out_dir: str) -> None:
     params = dvae.init_params(cfg.vqvae, g)
     codebook_from_clips(torch, dvae, params, cfg.vqvae, [p for p, _ in entries], g)
     export.save_dvae_pth(os.path.join(model_dir, "dvae.pth"), params, cfg.vqvae)
-    exs = {dev: extract.CodecExtractor(cfg, model_dir, device=dev) for dev in ("cuda", "cpu")}
-    dirs = {dev: os.path.join(root, f"out_{dev}") for dev in exs}
-    for dev, ex in exs.items():
-        extract.extract_audio_list(list_path, dirs[dev], cfg, model_dir, num_workers=4,
-                                   extractor=ex)
-    wavs = {p: np.asarray(load_prompt_audio(p, 24000), np.float32).reshape(-1)
-            for p, _ in entries}
-    Fb = extract.bucket_frames(max(extract.frames_for(w.size) for w in wavs.values()))
-    rel = {p: os.path.join(extract.speaker_of(p), "codes",
-                           os.path.splitext(os.path.basename(p))[0] + ".npy") for p in wavs}
-    margins = {rel[p]: code_margins(torch, dvae, exs["cpu"], w, Fb) for p, w in wavs.items()}
-    cmp = compare_extractions(dirs["cpu"], dirs["cuda"], margins)
+    dirs = {dev: os.path.join(root, f"out_{dev}") for dev in ("cuda", "cpu")}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev, d in dirs.items():
+            extract.extract_audio_list(list_path, d, cfg, model_dir, num_workers=4, device=dev)
+        wavs = {p: np.asarray(load_prompt_audio(p, 24000), np.float32).reshape(-1)
+                for p, _ in entries}
+        Fb = extract.bucket_frames(max(extract.frames_for(w.size) for w in wavs.values()))
+        rel = {p: os.path.join(extract.speaker_of(p), "codes",
+                               os.path.splitext(os.path.basename(p))[0] + ".npy") for p in wavs}
+        ex_cpu = extract.CodecExtractor(cfg, model_dir, device="cpu")
+        margins = {rel[p]: code_margins(torch, dvae, ex_cpu, w, Fb) for p, w in wavs.items()}
+        cmp = compare_extractions(dirs["cpu"], dirs["cuda"], margins)
 
-    # planted fault: the most used column swapped with the least used, on the card
-    used = np.concatenate([np.load(os.path.join(dirs["cpu"], spk, "codes", f))
-                           for spk in ("spk_a", "spk_b")
-                           for f in os.listdir(os.path.join(dirs["cpu"], spk, "codes"))])
-    counts = np.bincount(used, minlength=cfg.vqvae.num_tokens)
-    u, v = int(counts.argmax()), int(counts.argmin())      # v unused, or the least used
-    embed = exs["cuda"].dvae_params["codebook"]["embed"]
-    saved = embed.clone()
-    embed[:, [u, v]] = embed[:, [v, u]]
-    faulty = os.path.join(root, "out_fault")
-    extract.extract_audio_list(list_path, faulty, cfg, model_dir, extractor=exs["cuda"])
-    embed.copy_(saved)
-    fault = compare_extractions(dirs["cpu"], faulty, margins)
-    caught = fault["code_mismatches"] > 0
+        # planted fault: a dvae.pth with the most used column swapped with the
+        # least used, extracted on the card
+        used = np.concatenate([np.load(os.path.join(dirs["cpu"], spk, "codes", f))
+                               for spk in ("spk_a", "spk_b")
+                               for f in os.listdir(os.path.join(dirs["cpu"], spk, "codes"))])
+        counts = np.bincount(used, minlength=cfg.vqvae.num_tokens)
+        u, v = int(counts.argmax()), int(counts.argmin())      # v unused, or the least used
+        fault_model = os.path.join(root, "model_fault")
+        os.makedirs(fault_model, exist_ok=True)
+        shutil.copy(os.path.join(model_dir, "gpt.pth"), fault_model)
+        embed = params["codebook"]["embed"].clone()
+        embed[:, [u, v]] = embed[:, [v, u]]
+        export.save_dvae_pth(os.path.join(fault_model, "dvae.pth"),
+                             {**params, "codebook": {**params["codebook"], "embed": embed}},
+                             cfg.vqvae)
+        faulty = os.path.join(root, "out_fault")
+        extract.extract_audio_list(list_path, faulty, cfg, fault_model, num_workers=4,
+                                   device="cuda")
+        fault = compare_extractions(dirs["cpu"], faulty, margins)
+        caught = fault["code_mismatches"] > 0
 
-    # three DVAE train steps from the same weights and windows
-    tc = dtrain.DVAETrainConfig(batch_size=8, mel_width=64, steps=3, lr=1e-5, warmup_steps=1,
-                                rebalance_every=2, rebalance_lo=0.002)
-    start = dvae.init_params(cfg.vqvae, torch.Generator().manual_seed(14))
-    windows = dtrain.mel_window_batches(dtrain.discover_mels(dirs["cpu"]), 8, 64, seed=15)
-    g = torch.Generator().manual_seed(16)
-    steps = [(torch.from_numpy(next(windows)),
-              torch.randn((cfg.vqvae.codebook_dim, cfg.vqvae.num_tokens), generator=g))
-             for _ in range(3)]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        opt = dtrain.make_optimizer(tc)
-        state = dtrain.init_state(cfg.vqvae, opt, params=start, device=dev)
-        metrics = []
-        for mel, noise in steps:
-            state, m = dtrain.train_step(state, mel.to(dev), cfg.vqvae, opt, tc,
-                                         noise=noise.to(dev))
-            metrics.append({k: float(x) for k, x in m.items()})
-        runs[dev] = (state, metrics)
+        # three DVAE train steps from the same weights and windows
+        tc = dtrain.DVAETrainConfig(batch_size=8, mel_width=64, steps=3, lr=1e-5,
+                                    warmup_steps=1, rebalance_every=2, rebalance_lo=0.002)
+        start = dvae.init_params(cfg.vqvae, torch.Generator().manual_seed(14))
+        windows = dtrain.mel_window_batches(dtrain.discover_mels(dirs["cpu"]), 8, 64, seed=15)
+        g = torch.Generator().manual_seed(16)
+        steps = [(torch.from_numpy(next(windows)),
+                  torch.randn((cfg.vqvae.codebook_dim, cfg.vqvae.num_tokens), generator=g))
+                 for _ in range(3)]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            opt = dtrain.make_optimizer(tc)
+            state = dtrain.init_state(cfg.vqvae, opt, params=start, device=dev)
+            metrics = []
+            for mel, noise in steps:
+                state, m = dtrain.train_step(state, mel.to(dev), cfg.vqvae, opt, tc,
+                                             noise=noise.to(dev))
+                metrics.append({k: float(x) for k, x in m.items()})
+            runs[dev] = (state, metrics)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
                      for a, b in zip(runs["cuda"][1], runs["cpu"][1]) for k in b)
     codebook_err = _leaf_rel_err(torch, runs["cuda"][0].params["codebook"],
@@ -2780,15 +2796,16 @@ def extract_small_agreement(torch, out_dir: str) -> None:
                                                "uses": [int(counts[u]), int(counts[v])],
                                                "caught": caught},
           "train_steps": {"metric_rel_err": metric_err, "codebook_rel_err": codebook_err,
-                          "params_rel_err_reported": params_err, "codes_reset": resets},
+                          "params_rel_err": params_err, "codes_reset": resets},
+          "global_tf32_in_extraction_and_steps": True,
           "get_conditioning_rel_err": cond_err,
           "tol": {"mel": 1e-4, "cond": 1e-4, "codes_exempt_share": 0.01, "metrics": 1e-5,
-                  "codebook": 1e-5, "get_conditioning": 1e-4}})
+                  "codebook": 1e-5, "params": 1e-5, "get_conditioning": 1e-4}})
     if not extraction_agrees(cmp) or not caught or metric_err > 1e-5 or codebook_err > 1e-5 \
-            or resets == 0 or max(cond_err.values()) > 1e-4:
+            or params_err > 1e-5 or resets == 0 or max(cond_err.values()) > 1e-4:
         raise SmokeFailure(f"extract small: {cmp}, fault caught {caught}, train metrics "
-                           f"{metric_err}, codebook {codebook_err}, resets {resets}, "
-                           f"conditioning {cond_err}")
+                           f"{metric_err}, codebook {codebook_err}, params {params_err}, "
+                           f"resets {resets}, conditioning {cond_err}")
 
 
 def dvae_step_flops(cfg, B: int, W: int) -> tuple:
@@ -2823,10 +2840,11 @@ def extract_and_dvae(torch, out_dir: str) -> None:
     - extraction of 2 speakers x 24 clips of 1-15 s at batch 16 with the
       conditioning: clips/s, audio s per wall s, each stage's ms a batch
       (CUDA events), peak memory, distinct codes, decode and .npy-write s;
-    - DVAE training from that dvae.pth on that output at the
-      DVAETrainConfig defaults (batch 32, width 256) for 40 steps: step ms, windows/s, peak memory, a
-      model-FLOPs share of the fp32 peak (TF32 off), a profile of one step;
-      every loss finite, the codebook moved;
+    - DVAE training through its CLI, fine-tuning that dvae.pth (`--init`)
+      on that output at the DVAETrainConfig defaults (batch 32, width 256)
+      for 40 steps: step ms, windows/s, peak memory, a model-FLOPs share of
+      the fp32 peak (TF32 off), a profile of one step; every loss finite,
+      the codebook moved, the written dvae_step_40 equal to the last state;
     - the trained weights through save_dvae_pth and load_dvae_checkpoint,
       one speaker extracted again with them, and the LoRA Trainer for 4
       micro-steps on the extracted manifests;
@@ -2876,11 +2894,8 @@ def extract_and_dvae(torch, out_dir: str) -> None:
     torch.cuda.empty_cache()
     write_s = time.perf_counter() - t0
 
-    # extraction, each stage between CUDA events, decode and writes timed
-    t0 = time.perf_counter()
-    ex = extract.CodecExtractor(cfg, model_dir, batch_size=16, device="cuda")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    # extraction: each stage between CUDA events, the extractor's load,
+    # decode and writes on the host's clock (the methods wrapped on the class)
     stages = {"mel": [], "dvae_encode_quantize": [], "conditioning": []}
 
     def timed(name, fn):
@@ -2893,31 +2908,41 @@ def extract_and_dvae(torch, out_dir: str) -> None:
             return out
         return run
 
-    ex.mel_uncentered = timed("mel", ex.mel_uncentered)
-    ex.codes = timed("dvae_encode_quantize", ex.codes)
-    ex.conditioning = timed("conditioning", ex.conditioning)
-    host = {"decode": [], "npy_write": []}
-    load_audio, save = extract.audio_io.load_prompt_audio, np.save
+    host = {"extractor_load": [], "decode": [], "npy_write": []}
 
-    def clocked(name, fn):
+    def clocked(name, fn, sync=False):
         def run(*args, **kw):
             t = time.perf_counter()
             out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
             host[name].append(time.perf_counter() - t)
             return out
         return run
 
+    Ex = extract.CodecExtractor
+    methods = {n: getattr(Ex, n) for n in ("__init__", "mel_uncentered", "codes",
+                                            "conditioning")}
+    load_audio, save = extract.audio_io.load_prompt_audio, np.save
     out_b = os.path.join(root, "extracted")
     torch.cuda.reset_peak_memory_stats()
+    Ex.__init__ = clocked("extractor_load", methods["__init__"], sync=True)
+    Ex.mel_uncentered = timed("mel", methods["mel_uncentered"])
+    Ex.codes = timed("dvae_encode_quantize", methods["codes"])
+    Ex.conditioning = timed("conditioning", methods["conditioning"])
     extract.audio_io.load_prompt_audio = clocked("decode", load_audio)
     np.save = clocked("npy_write", save)
     try:
         t0 = time.perf_counter()
-        info = extract.extract_audio_list(list_path, out_b, cfg, model_dir, extractor=ex)
+        info = extract.extract_audio_list(list_path, out_b, cfg, model_dir, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         extract.audio_io.load_prompt_audio, np.save = load_audio, save
+        for n, f in methods.items():
+            setattr(Ex, n, f)
+    load_s = sum(host["extractor_load"])
+    wall -= load_s
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     stage_ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in stages.items()}
     busy_s = sum(sum(v) for v in stage_ms.values()) / 1e3
@@ -2927,7 +2952,8 @@ def extract_and_dvae(torch, out_dir: str) -> None:
     emit({"phase": "extraction, full width (flagship GPT conditioning, the shipped DVAE), "
                    "batch 16, with the conditioning", "card": card_line(),
           "clips": n_clips, "audio_s": audio_s, "batches": len(stage_ms["mel"]),
-          "weights_write_s": write_s, "extractor_load_s": load_s, "wall_s": wall,
+          "weights_write_s": write_s, "extractor_load_s": load_s,
+          "wall_s": wall, "wall_note": "extract_audio_list's wall less the extractor's load",
           "clips_per_s": n_clips / wall, "audio_s_per_wall_s": audio_s / wall,
           "stage_ms_per_batch": stage_ms, "stage_device_s": busy_s,
           "wall_outside_stage_events_s": wall - busy_s,
@@ -2939,12 +2965,13 @@ def extract_and_dvae(torch, out_dir: str) -> None:
     if n_clips != 48 or codes[0].dtype != np.int32 or \
             not os.path.exists(os.path.join(out_b, "spk_b", "medoid_condition.npy")):
         raise SmokeFailure(f"extraction full width: {n_clips} clips, {codes[0].dtype}")
-    del ex
     torch.cuda.empty_cache()
 
-    # DVAE training on the extracted mels, each step between CUDA events
+    # DVAE training on the extracted mels through the CLI, fine-tuning the
+    # dvae.pth (the DVAETrainConfig defaults, 40 steps), each step between
+    # CUDA events
     tc = dtrain.DVAETrainConfig(steps=40)
-    steps = []
+    steps, last = [], []
     inner = dtrain.train_step
 
     def timed_step(state, mel, *args, **kw):
@@ -2955,22 +2982,27 @@ def extract_and_dvae(torch, out_dir: str) -> None:
         out = inner(state, mel, *args, **kw)
         e1.record()
         steps.append((e0, e1, out[1]["loss"], mel))
+        last[:] = [out[0]]
         return out
 
     mels = dtrain.discover_mels(out_b)
+    run_dir = os.path.join(root, "dvae_run")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dtrain.train_step = timed_step
     t0 = time.perf_counter()
     try:
-        state = dtrain.train_dvae(cfg.vqvae, tc, mels, os.path.join(root, "dvae_run"),
-                                  device="cuda", params=checkpoint.load_dvae_checkpoint(
-                                      os.path.join(model_dir, "dvae.pth"), cfg.vqvae))
+        dtrain.main(["--mels", out_b, "--out", run_dir, "--steps", str(tc.steps),
+                     "--init", os.path.join(model_dir, "dvae.pth"), "--device", "cuda"])
     finally:
         dtrain.train_step = inner
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = last[0]
+    trained = checkpoint.load_pytree(os.path.join(run_dir, f"dvae_step_{tc.steps}"),
+                                     device="cuda")["params"]
+    written = _trees_equal(torch, trained, state.params)
     first_embed, steps = steps[0], steps[1:]
     ms = [a.elapsed_time(b) for a, b, _, _ in steps]
     losses = torch.stack([x for _, _, x, _ in steps]).cpu()
@@ -3001,7 +3033,7 @@ def extract_and_dvae(torch, out_dir: str) -> None:
                            "2 D N W/4; per step B x that + the EMA's one-hot product "
                            "2 (B W/4) D N; over 67e12 fp32",
           "losses_first_last": [float(losses[0]), float(losses[-1])],
-          "codebook_moved_max_abs": moved,
+          "codebook_moved_max_abs": moved, "checkpoint_equals_last_state": written,
           "profile_one_step": {"wall_ms": wall_step * 1e3, "device_busy_ms": busy_us / 1e3,
                                "device_busy_share": busy_us / 1e6 / wall_step,
                                "kernels": sum(e.count for e in launched),
@@ -3009,19 +3041,21 @@ def extract_and_dvae(torch, out_dir: str) -> None:
                                    e.key[:80]: dev(e) / 1e3 for e in
                                    sorted(launched, key=dev, reverse=True)[:6]}},
           "checkpoints": sorted(os.listdir(os.path.join(root, "dvae_run")))})
-    if not bool(torch.isfinite(losses).all()) or not moved > 0 or len(ms) != 40:
-        raise SmokeFailure(f"DVAE training: losses {losses.tolist()}, moved {moved}")
+    if not bool(torch.isfinite(losses).all()) or not moved > 0 or len(ms) != 40 \
+            or not written:
+        raise SmokeFailure(f"DVAE training: losses {losses.tolist()}, moved {moved}, "
+                           f"checkpoint equal {written}")
 
     # close the loop: trained dvae.pth -> extraction of one speaker -> the LoRA Trainer
     model2 = os.path.join(root, "model_trained")
     os.makedirs(model2)
     for f in ("vocab.txt", "gpt.pth"):
         os.link(os.path.join(model_dir, f), os.path.join(model2, f))
-    export.save_dvae_pth(os.path.join(model2, "dvae.pth"), state.params, cfg.vqvae)
+    export.save_dvae_pth(os.path.join(model2, "dvae.pth"), trained, cfg.vqvae)
     back = from_jax.dvae_params_from_numpy(
         checkpoint.load_dvae_checkpoint(os.path.join(model2, "dvae.pth"), cfg.vqvae), cfg.vqvae,
         device="cuda")
-    round_trip = _trees_equal(torch, back, state.params)
+    round_trip = _trees_equal(torch, back, trained)
     list_a = os.path.join(root, "list_a.txt")
     with open(list_path, encoding="utf-8") as f, open(list_a, "w", encoding="utf-8") as g2:
         g2.writelines(l for l in f if f"{os.sep}spk_a{os.sep}" in l)
@@ -3032,7 +3066,7 @@ def extract_and_dvae(torch, out_dir: str) -> None:
         a = np.load(os.path.join(out_a, "spk_a", "codes", f))
         b = np.load(os.path.join(out_b, "spk_a", "codes", f))
         changed, total = changed + int((a != b).sum()), total + a.size
-    del state
+    del state, last, trained, back
     torch.cuda.empty_cache()
     tcfg = Config.from_dict({"train": {"epochs": 1, "max_steps_per_epoch": 4,
                                        "finetune_model_dir": os.path.join(root, "ft"),

@@ -171,10 +171,12 @@ class CodecExtractor:
 
     @torch.no_grad()
     def mel_uncentered(self, wav: torch.Tensor) -> torch.Tensor:
-        """[B, L] host-padded audio -> [B, n_mels, F] log-mel (center=False)."""
+        """[B, L] host-padded audio -> [B, n_mels, F] log-mel (center=False),
+        TF32 off."""
         m = self._mel_cfg
         spec = spectrogram(wav, m.n_fft, m.hop_length, m.win_length, power=1.0, center=False)
-        return safe_log(torch.einsum("...ft,fm->...mt", spec, self._fb))
+        with self._dvae.no_tf32():
+            return safe_log(torch.einsum("...ft,fm->...mt", spec, self._fb))
 
     @torch.no_grad()
     def codes(self, mel: torch.Tensor) -> torch.Tensor:
@@ -183,7 +185,9 @@ class CodecExtractor:
 
     @torch.no_grad()
     def conditioning(self, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        return self._uv.get_conditioning(self.gpt_params, self.cfg.gpt, mel, lengths)
+        """[B, 100, F] -> [B, 32, D] (mean-pooled types [B, 1, D]), TF32 off."""
+        with self._dvae.no_tf32():
+            return self._uv.get_conditioning(self.gpt_params, self.cfg.gpt, mel, lengths)
 
     # -- batched path ------------------------------------------------------
 
@@ -247,7 +251,9 @@ class CodecExtractor:
     @torch.no_grad()
     def extract_clip_features(self, wav: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """wav [1, T] -> (mel [100, F], codes [F//4])."""
-        mel = mel_spectrogram(torch.as_tensor(np.asarray(wav, np.float32), device=self.device))
+        with self._dvae.no_tf32():
+            mel = mel_spectrogram(torch.as_tensor(np.asarray(wav, np.float32),
+                                                  device=self.device))
         # the DVAE reduces time 4x; trim so codes align with whole frames
         F = mel.shape[-1] - (mel.shape[-1] % 4)
         codes = self.codes(mel[..., :F])
@@ -298,13 +304,11 @@ def extract_audio_list(
     seed: int = 0,
     exact: bool = False,
     device="cuda",
-    extractor: Optional[CodecExtractor] = None,
 ) -> Dict[str, Dict]:
     """One audio list -> the processed-data layout under `output_dir`.
-    Returns the per-speaker stats merged into speaker_info.json.  A caller
-    may pass an `extractor` built once for several lists."""
+    Returns the per-speaker stats merged into speaker_info.json."""
     entries = parse_audio_list(list_path)
-    extractor = extractor or CodecExtractor(cfg, model_dir, batch_size, device)
+    extractor = CodecExtractor(cfg, model_dir, batch_size, device)
     sr = cfg.dataset.sample_rate
 
     per_speaker: Dict[str, List[Dict]] = {}

@@ -1,7 +1,7 @@
 """DVAE (mel VQ-VAE) training on one device (counterpart of
 indextts_tpu/train/dvae.py, without its data mesh).
 
-    python -m indextts_tpu_torch.train.dvae --mels DIR [--device cpu]
+    python -m indextts_tpu_torch.train.dvae --mels DIR [--init dvae.pth] [--device cpu]
 
 The reference ships the DiscreteVAE's training pieces (the EMA quantiser,
 dead-code rebalancing, DiscretizationLoss; xtts_dvae.py:54-174,364-386) but
@@ -196,8 +196,9 @@ def mel_window_batches(paths: List[str], batch: int, width: int,
 def train_dvae(cfg: VQVAEConfig, tc: DVAETrainConfig, mel_paths: List[str], out_dir: str,
                writer=None, device="cuda", params: Any = None) -> DVAETrainState:
     """`tc.steps` steps of `tc.batch_size` windows from random weights (seed
-    `tc.seed`) or from `params`; writes `dvae_step_{n}` every
-    `checkpoint_every` steps and at the end."""
+    `tc.seed`) or from `params` (a numpy tree, as `load_dvae_checkpoint`
+    gives); writes `dvae_step_{n}` every `checkpoint_every` steps and at the
+    end."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_dvae: CUDA is not available; pass device='cpu' to train "
@@ -251,6 +252,8 @@ def main(argv=None) -> None:
     ap.add_argument("--rebalance-every", type=int, default=0)
     ap.add_argument("--discretization-weight", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--init", default=None,
+                    help="a dvae.pth to fine-tune; random weights from --seed otherwise")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
@@ -266,7 +269,8 @@ def main(argv=None) -> None:
             cfg = Config.load(cfg_path).vqvae
     paths = discover_mels(args.mels)
     print(f"[dvae] {len(paths)} mel files")
-    train_dvae(cfg, tc, paths, args.out, device=args.device)
+    params = ckpt_io.load_dvae_checkpoint(args.init, cfg) if args.init else None
+    train_dvae(cfg, tc, paths, args.out, device=args.device, params=params)
 
 
 if __name__ == "__main__":

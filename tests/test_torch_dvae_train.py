@@ -177,3 +177,26 @@ def test_train_dvae_defaults_to_cuda_and_raises_without_it(mel_dir, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dtrain.train_dvae(CFG, dtrain.DVAETrainConfig(steps=1), dtrain.discover_mels(mel_dir),
                           str(tmp_path))
+
+
+def test_cli_init_fine_tunes_a_dvae_pth(mel_dir, tmp_path):
+    """`--init dvae.pth` starts from that file's weights: at lr 0 the
+    encoder and decoder of the written step equal the file's."""
+    from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.io import export
+
+    model_dir = tmp_path / "model"
+    model_dir.mkdir()
+    Config.from_dict({"vqvae": SIZES}).save(str(model_dir / "config.yaml"))
+    tree = dvae_numpy_params(JCFG, 3)
+    export.save_dvae_pth(str(model_dir / "dvae.pth"), tree, CFG)
+    out = tmp_path / "run"
+    dtrain.main(["--mels", str(mel_dir), "--out", str(out), "--model_dir", str(model_dir),
+                 "--init", str(model_dir / "dvae.pth"), "--steps", "1", "--batch", "2",
+                 "--width", "32", "--lr", "0", "--device", "cpu"])
+    back = checkpoint.load_pytree(str(out / "dvae_step_1"))["params"]
+    want = {k: v for k, v in tree.items() if k != "codebook"}
+    got = {k: v for k, v in back.items() if k != "codebook"}
+    assert sorted(got) == sorted(want)
+    for (p, a), (_, b) in zip(jax.tree.leaves_with_path(got), jax.tree.leaves_with_path(want)):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=jax.tree_util.keystr(p))
