@@ -35,10 +35,10 @@ Exactness under padding:
     runs clip by clip.
 
 Batches are not padded to ``batch_size`` rows (eager torch compiles no
-fixed shape; rows are independent).  On the card the host pads the next
-batch while the device computes this one: a batch's results come back
-through pinned buffers by copies queued behind its compute, and are read
-only when the next batch has been queued.  The DVAE runs with TF32 off.
+fixed shape; rows are independent).  Each batch is read back before the
+next is queued: the JAX package's one-batch-deep overlap gained nothing on
+an H100, where the host's decode, padding and writes bind the wall.  The
+mel, the DVAE and the conditioning run with TF32 off.
 """
 
 from __future__ import annotations
@@ -193,17 +193,13 @@ class CodecExtractor:
 
     def dispatch_batch(self, wavs: Sequence[np.ndarray], extract_condition: bool):
         """Queue one bucket-batch on the device; returns an opaque handle for
-        `fetch_batch`.  On the card the results are copied into pinned host
-        buffers by copies queued behind the batch's compute, so the host can
-        prepare the next batch before reading this one."""
+        `fetch_batch`."""
         hop, n_fft = self._hop, self._n_fft
         frames = [frames_for(w.shape[-1], hop) for w in wavs]
         Fb = bucket_frames(max(frames))
         Lw = (Fb - 1) * hop + n_fft
-        cuda = self.device.type == "cuda"
 
-        buf = torch.zeros((len(wavs), Lw), dtype=torch.float32, pin_memory=cuda)
-        host = buf.numpy()
+        host = np.zeros((len(wavs), Lw), np.float32)
         for i, w in enumerate(wavs):
             w = np.asarray(w, np.float32).reshape(-1)
             # per-clip reflect pad (center=True semantics), then the zero
@@ -213,26 +209,19 @@ class CodecExtractor:
             padded = np.pad(w, (n_fft // 2, n_fft // 2), mode="reflect")[:Lw]
             host[i, : padded.shape[0]] = padded
 
-        mels = self.mel_uncentered(buf.to(self.device, non_blocking=True))   # [B, 100, Fb]
+        mels = self.mel_uncentered(torch.from_numpy(host).to(self.device))   # [B, 100, Fb]
         out = {"mels": mels, "codes": self.codes(mels)}                      # [B, Fb//4]
         if extract_condition:
             lens = torch.tensor(frames, dtype=torch.int32).to(self.device)
             out["cond"] = self.conditioning(mels, lens)                      # [B, 32, D]
-        done = None
-        if cuda:
-            out = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-            done = torch.cuda.Event()
-            done.record()
-        return frames, out, done
+        return frames, out
 
     @staticmethod
     def fetch_batch(handle) -> List[Dict[str, np.ndarray]]:
         """A dispatched batch -> per-clip dicts {mel [100, F], codes [F4//4],
         cond (1, 32, D)?}."""
-        frames, out, done = handle
-        if done is not None:
-            done.synchronize()
-        arrays = {k: v.numpy() for k, v in out.items()}
+        frames, out = handle
+        arrays = {k: v.cpu().numpy() for k, v in out.items()}
         recs = []
         for i, F in enumerate(frames):
             F4 = F - F % 4
@@ -315,30 +304,17 @@ def extract_audio_list(
     latents: Dict[str, List[np.ndarray]] = {}
     mel_paths: Dict[str, List[str]] = {}
     used_stems: Dict[Tuple[str, str], str] = {}
-    pending = None  # one batch deep: queue batch i+1 before reading batch i
-    batches = list(_iter_batches(entries, extractor, sr, num_workers, exact))
-    for bi in range(len(batches) + 1):
-        if bi < len(batches):
-            batch_entries, wavs = batches[bi]
-            if exact:
-                feats = []
-                for w in wavs:
-                    mel, codes = extractor.extract_clip_features(w[None])
-                    rec = {"mel": mel, "codes": codes}
-                    if extract_condition:
-                        rec["cond"] = extractor.conditioning_latent(mel)
-                    feats.append(rec)
-                cur = (batch_entries, wavs, feats)
-            else:
-                cur = (batch_entries, wavs, extractor.dispatch_batch(wavs, extract_condition))
+    for batch_entries, wavs in _iter_batches(entries, extractor, sr, num_workers, exact):
+        if exact:
+            feats = []
+            for w in wavs:
+                mel, codes = extractor.extract_clip_features(w[None])
+                rec = {"mel": mel, "codes": codes}
+                if extract_condition:
+                    rec["cond"] = extractor.conditioning_latent(mel)
+                feats.append(rec)
         else:
-            cur = None
-        if pending is None:
-            pending = cur
-            continue
-        batch_entries, wavs, handle = pending
-        feats = handle if exact else CodecExtractor.fetch_batch(handle)
-        pending = cur
+            feats = extractor.extract_batch(wavs, extract_condition)
         for (audio_path, text), wav, feat in zip(batch_entries, wavs, feats):
             speaker = speaker_of(audio_path, list_path)
             stem = os.path.splitext(os.path.basename(audio_path))[0]
