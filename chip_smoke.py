@@ -110,7 +110,28 @@
      weights through dvae.pth into a second extraction, and the LoRA
      Trainer for 4 micro-steps on the extracted manifests;
      get_conditioning of each type on a 10 s mel (ms a call).
-9. LoRA fine-tuning (`indextts_tpu_torch/train/`):
+9. Vocoder fine-tuning (`indextts_tpu_torch/train/vocoder.py`,
+   `models/discriminators.py`), where every generator activation runs K1
+   forward and K1b (`csrc/anti_alias_backward.cu`) backward:
+   - K1b against its plain version in fp32 at the six stage shapes of a
+     training step (batch 8, 24 codes; timed, graph replay and eager, with
+     the plain backward) and at T in {1, 2, 3, 5, 7, 257} with logscale on
+     and off; two runs bit-equal; a planted fault (grad_alpha without its
+     logscale factor) rejected; a bf16 input refused;
+   - one GAN step on the small fp32 generator on the card and on the CPU:
+     every gradient leaf before the optimizer, conv_pre's and the latent's
+     non-zero and equal (fault C6), then the whole step's metrics and
+     parameters;
+   - at full width (1536 channels, batch 8, 24 codes, fp32, TF32 off) 20
+     steps on synthetic batches (step ms, samples/s, peak memory, K1 and
+     K1b launches a step, a model-FLOPs share of the fp32 peak, a profile
+     of one step) and 3 steps through the CLI over the extraction output
+     of phase 8 with its full-width GPT; the checkpoint loads back equal;
+     the trained generator through bigvgan_generator.pth into an engine:
+     one request, K1 109 times a vocode and K1b never, its vocoder output
+     bit-equal to the in-memory generator's, the speaker similarity of its
+     wav to the prompt.
+10. LoRA fine-tuning (`indextts_tpu_torch/train/`):
    - the small fp32 model on the card and on the CPU: three optimizer
      updates at gradient_accumulation_steps=2 with the clip firing, the
      adapters within 1e-5 of each other after every micro-step; a NaN base
@@ -130,8 +151,9 @@
      model_epoch_1: equal greedy codes for a 200-code request, qkv_w equal
      to the bf16 merge bit for bit, a speaker_id request with no prompt
      answers a wav; K2 once a decode step and K1 109 times a vocode.
-10. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
-   ms and share of its bound; K2 and K4 one entry per tier, with
+11. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
+   ms and share of its bound; K1b per training step with `per_shape`; K2
+   and K4 one entry per tier, with
    `launches_per_call` and `gbytes_per_s`); before it, on a line of its
    own, the previous design's K2 and K4 times as PERF.md records them
    (quoted, not measured in the run); the card line, and as the last line
@@ -2830,7 +2852,7 @@ def dvae_step_flops(cfg, B: int, W: int) -> tuple:
     return convs + dist, B * per_window + 2 * B * q * D * N
 
 
-def extract_and_dvae(torch, out_dir: str) -> None:
+def extract_and_dvae(torch, out_dir: str) -> str:
     """The DVAE and extraction slice (extraction, DVAE training, dvae.pth,
     every conditioning type): the small models' card-against-CPU checks,
     then at full width with random weights from fixed seeds (the flagship
@@ -2849,7 +2871,9 @@ def extract_and_dvae(torch, out_dir: str) -> None:
       one speaker extracted again with them, and the LoRA Trainer for 4
       micro-steps on the extracted manifests;
     - get_conditioning of each condition type on a 10 s mel, ms a call.
-    None of this reaches K1-K4; the phase checks that none launches."""
+    None of this reaches K1-K4; the phase checks that none launches.
+    Returns the directory of its files (the model, the extraction output),
+    which the vocoder phase reads and the caller removes."""
     import shutil
     import tempfile
 
@@ -3126,11 +3150,533 @@ def extract_and_dvae(torch, out_dir: str) -> None:
           "phase_s": time.perf_counter() - t_phase, "small_checks_s": small_s})
     if not all(v["finite"] for v in cond_ms.values()) or any(launched_k):
         raise SmokeFailure(f"get_conditioning: {cond_ms}; K1-K4 launches {launched_k}")
-    shutil.rmtree(root)
+    return root
+
+
+# ---------------------------------------------------------------------------
+# vocoder fine-tuning: K1b, the small card-vs-CPU step, full-width training
+# ---------------------------------------------------------------------------
+
+VOC_CODES = 24              # VocoderTrainConfig's segment: 24 codes, 24,576 samples
+K1B_FLOPS_PER_ELEM = 92     # 36 FMAs (u, Down^T, Up^T) as flops, 20 for the two snakes' derivatives
+K1B_EDGE_TS = (1, 2, 3, 5, 7, 257)
+K1B_TOL_X = 1e-5            # grad_x: max|diff| / max|plain|, fp32 (tap order, __sincosf)
+K1B_TOL_AB = 1e-4           # grad_alpha, grad_beta: sums over B x 2T terms in another order
+
+
+def vocoder_stage_shapes(B: int, codes: int):
+    """[B, C, T] of the activations at the six BigVGAN stages for `codes`
+    latent frames, and each shape's calls per generator forward."""
+    C0, rates = 1536, [4, 4, 4, 4, 2, 2]
+    shapes, T = [], codes
+    for i, u in enumerate(rates):
+        T *= u
+        shapes.append((B, C0 // 2 ** (i + 1), T))
+    counts = {s: 18 for s in shapes}
+    counts[shapes[-1]] += 1
+    return shapes, counts
+
+
+def k1b_inputs(torch, g, B: int, C: int, T: int, logscale: bool = True):
+    x = torch.randn(B, C, T, generator=g, device="cuda")
+    gy = torch.randn(B, C, T, generator=g, device="cuda")
+    a = 0.3 * torch.randn(C, generator=g, device="cuda")
+    b = 0.3 * torch.randn(C, generator=g, device="cuda")
+    if not logscale:
+        a, b = a.abs() + 0.5, b.abs() + 0.5
+    return x, a, b, gy
+
+
+def k1b_errors(got, ref) -> dict:
+    """max|diff| / max|plain| for grad_x, grad_alpha, grad_beta."""
+    return {k: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for k, a, b in zip(("grad_x", "grad_alpha", "grad_beta"), got, ref)}
+
+
+def k1b_within(errs: dict) -> bool:
+    return errs["grad_x"] <= K1B_TOL_X and max(errs["grad_alpha"],
+                                               errs["grad_beta"]) <= K1B_TOL_AB
+
+
+def kernel_checks_anti_alias_backward(torch, filters, k1b):
+    """K1b against its plain version (ops/filters.anti_aliased_activation_
+    backward) in fp32 at the six stage shapes of a vocoder training step
+    (batch 8, 24 codes; timed) and at T in {1, 2, 3, 5, 7, 257} (B = 2,
+    C = 3, logscale on and off); two runs bit-equal at the largest shape; a
+    planted fault (the plain grad_alpha without its logscale factor) that
+    the check must reject; and a bf16 input refused.  Returns its
+    kernels-line entry: times summed over one training step's 109 calls."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    shapes, counts = vocoder_stage_shapes(8, VOC_CODES)
+    worst = 0.0
+    per_shape = {}
+    for B, C, T in shapes:
+        x, a, b, gy = k1b_inputs(torch, g, B, C, T)
+        errs = k1b_errors(k1b(x, a, b, gy), filters.anti_aliased_activation_backward(x, a, b, gy))
+        nbytes = 4 * B * C * T
+        n_sets = max(2, min(16, math.ceil(100e6 / (2 * nbytes))))
+        sets = [(x, a, b, gy)] + [k1b_inputs(torch, g, B, C, T) for _ in range(n_sets - 1)]
+        iters = max(20, len(sets))
+        bb = (3 * nbytes + 4 * 4 * C) / HBM_BYTES_PER_S * 1e3
+        bo = K1B_FLOPS_PER_ELEM * B * C * T / FP32_FLOPS * 1e3
+        t = {"ms": cuda_ms(k1b, sets, iters), "eager_ms": cuda_ms(k1b, sets, iters, graph=False),
+             "plain_ms": cuda_ms(filters.anti_aliased_activation_backward, sets[:2], 3,
+                                 graph=False),
+             "bound_ms": max(bb, bo), "bound_by": "bytes" if bb >= bo else "operations"}
+        per_shape[f"B={B} C={C} T={T}"] = {**t, "share_of_bound": t["bound_ms"] / t["ms"],
+                                           "calls_per_step": counts[(B, C, T)]}
+        worst = max(worst, max(errs.values()))
+        emit({"check": f"K1b anti_alias_backward fp32 B={B} C={C} T={T}", **errs,
+              "tol_grad_x": K1B_TOL_X, "tol_grad_alpha_beta": K1B_TOL_AB,
+              "ok": k1b_within(errs), **t})
+        if not k1b_within(errs):
+            raise SmokeFailure(f"K1b at {(B, C, T)}: {errs}")
+        del sets
+    for logscale in (True, False):
+        for T in K1B_EDGE_TS:
+            x, a, b, gy = k1b_inputs(torch, g, 2, 3, T, logscale)
+            errs = k1b_errors(k1b(x, a, b, gy, logscale),
+                              filters.anti_aliased_activation_backward(x, a, b, gy, logscale))
+            worst = max(worst, max(errs.values()))
+            emit({"check": f"K1b anti_alias_backward fp32 B=2 C=3 T={T} logscale={logscale}",
+                  **errs, "ok": k1b_within(errs)})
+            if not k1b_within(errs):
+                raise SmokeFailure(f"K1b at T={T} logscale={logscale}: {errs}")
+    # two runs bit-equal; a planted fault rejected; bf16 refused
+    x, a, b, gy = k1b_inputs(torch, g, *shapes[-1])
+    first, second = k1b(x, a, b, gy), k1b(x, a, b, gy)
+    bit_equal = all(torch.equal(p, q) for p, q in zip(first, second))
+    gx, ga, gb = filters.anti_aliased_activation_backward(x, a, b, gy)
+    planted = k1b_errors(first, (gx, ga / torch.exp(a), gb))
+    try:
+        k1b(x.bfloat16(), a, b, gy.bfloat16())
+        refused = False
+    except ValueError:
+        refused = True
+    emit({"check": "K1b determinism, planted fault, bf16 refused", "shape": list(shapes[-1]),
+          "two_runs_bit_equal": bit_equal, "planted_fault": "grad_alpha without the logscale "
+          "factor exp(alpha)", "planted_fault_errs": planted,
+          "planted_fault_rejected": not k1b_within(planted), "bf16_refused": refused})
+    if not bit_equal or k1b_within(planted) or not refused:
+        raise SmokeFailure(f"K1b: bit-equal {bit_equal}, planted fault {planted}, "
+                           f"bf16 refused {refused}")
+
+    def total(key):
+        return sum(per_shape[f"B={B} C={C} T={T}"][key] * counts[(B, C, T)]
+                   for B, C, T in shapes)
+
+    bb = sum(counts[s] * (3 * 4 * s[0] * s[1] * s[2] + 16 * s[1]) for s in shapes) \
+        / HBM_BYTES_PER_S * 1e3
+    bo = sum(counts[s] * K1B_FLOPS_PER_ELEM * s[0] * s[1] * s[2] for s in shapes) \
+        / FP32_FLOPS * 1e3
+    return {"name": "anti_alias_activation_backward", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/anti_alias_backward.cu",
+            "replaces": "indextts_tpu/ops/pallas/anti_alias.py:242 (its backward: the TPU "
+                        "kernel has none, JAX differentiates the XLA composition)",
+            "max_abs_err": worst, "tolerance": f"max|diff| / max|plain|: grad_x {K1B_TOL_X}, "
+                                               f"grad_alpha and grad_beta {K1B_TOL_AB}",
+            "ms": total("ms"), "eager_ms": total("eager_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(bb, bo), "bound_by": "bytes" if bb >= bo else "operations",
+            "library_ms": None,
+            "per": f"one fp32 vocoder training step (batch 8, {VOC_CODES} codes): 109 calls "
+                   "over 6 shapes",
+            "per_shape": per_shape}
+
+
+def vocoder_step_flops(cfg, tc) -> dict:
+    """Model FLOPs of one vocoder GAN step from the shapes: the generator's
+    convolutions (2 x in x out x k an output position; a transposed conv
+    counted over its input positions) and K1's work per activation element;
+    each sub-discriminator's convolutions.  A step runs the generator
+    forward once and its backward (2x), the discriminators forward 4 times
+    (real and generated, each side of the update; the update's two with
+    weight and input gradients, 2x each; the generator's side with input
+    gradients only on the generated half).  ECAPA, the STFTs and the mel
+    losses are left out."""
+    B, T = tc.batch_size, tc.segment_codes
+    C = cfg.upsample_initial_channel
+    gen = 2 * cfg.gpt_dim * C * 7 * T
+    elems = 0
+    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        gen += 2 * C * (C // 2) * k * T
+        T, C = T * u, C // 2
+        for kr, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            gen += len(dils) * 2 * (2 * C * C * kr * T)
+            elems += 2 * len(dils) * C * T
+    elems += C * T
+    gen += 2 * C * 7 * T + K1_FLOPS_PER_ELEM * elems
+    dis = 0
+    chans = [1, 32, 128, 512, 1024, 1024]
+    for p in tc.periods:
+        H = -(-T // p)
+        for i in range(5):
+            H = (H - 1) // (3 if i < 4 else 1) + 1
+            dis += 2 * chans[i] * chans[i + 1] * 5 * H * p
+        dis += 2 * 1024 * 3 * H * p
+    for n_fft, hop, _ in tc.resolutions:
+        pad = (n_fft - hop) // 2
+        L = max(max(T, pad + 1) + 2 * pad, n_fft)
+        F, W = n_fft // 2 + 1, 1 + (L - n_fft) // hop
+        rch = [1, 32, 32, 32, 32, 32]
+        for i, (kw, s, pw) in enumerate([(9, 1, 4), (9, 2, 4), (9, 2, 4), (9, 2, 4), (3, 1, 1)]):
+            W = (W + 2 * pw - kw) // s + 1
+            dis += 2 * rch[i] * rch[i + 1] * 3 * kw * F * W
+        dis += 2 * 32 * 9 * F * W
+    return {"generator_forward_per_sample": gen, "discriminators_forward_per_sample": dis,
+            "per_step": B * (3 * gen + 9 * dis)}
+
+
+def _state_to(torch, state, device):
+    from indextts_tpu_torch.train.lora import tree_map
+
+    move = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
+    return type(state)(move(state.gen_params), move(state.disc_floats), move(state.gen_opt),
+                       move(state.disc_opt), state.step.to(device))
+
+
+def gan_step_grads(torch, state, batch, aux, cfg, opt, tc):
+    """The gradients of one GAN step, as train_step takes them: the
+    discriminators' at the start, the generator's (and the latent's)
+    against the discriminators after their update."""
+    from indextts_tpu_torch.models import bigvgan, discriminators as disc
+    from indextts_tpu_torch.models.dvae import no_tf32
+    from indextts_tpu_torch.train import vocoder
+    from indextts_tpu_torch.train.lora import tree_map
+
+    with no_tf32(), torch.enable_grad():
+        gen = tree_map(lambda p: p.detach().clone().requires_grad_(True), state.gen_params)
+        latent = batch.latent.clone().requires_grad_(True)
+        wav = bigvgan.forward(gen, latent, batch.mel_ref, cfg)
+        T = min(wav.shape[-1], batch.wav.shape[-1])
+        wav, real = wav[..., :T], batch.wav[..., :T]
+        d_leaves = [p.detach().clone().requires_grad_(True) for p in state.disc_floats]
+        dp = vocoder.merge_static(d_leaves, aux)
+        ld = disc.discriminator_loss(disc.discriminators_forward(dp, real)[0],
+                                     disc.discriminators_forward(dp, wav.detach())[0])
+        d_grads = vocoder._grads(ld, d_leaves)
+        with torch.no_grad():
+            floats, _ = opt.step(d_grads, state.disc_opt, [p.detach() for p in d_leaves])
+        dp = vocoder.merge_static(floats, aux)
+        with torch.no_grad():
+            _, rf = disc.discriminators_forward(dp, real)
+        gs, gf = disc.discriminators_forward(dp, wav)
+        lg = (disc.generator_loss(gs) + tc.feature_weight * disc.feature_loss(rf, gf)
+              + tc.mel_weight * disc.multiscale_mel_loss(real[:, 0], wav[:, 0],
+                                                         scales=tc.mel_scales))
+        g_grads = vocoder._grads(lg, {"gen": gen, "latent": latent})
+    return d_grads, g_grads
+
+
+# Card-vs-CPU gradient tolerance, per leaf: (of the leaf's largest
+# magnitude, of the tree's largest).  The generator's path runs K1 and K1b
+# against their plain versions (fp32, __sinf/__sincosf, other tap orders).
+# The discriminators' run only library convolutions: cuDNN's fp32 weight
+# gradient of the second period conv sums B x positions products that cancel
+# to about 1e-3 of their terms (8.8e-5 off at a largest 0.033 in a tree whose
+# largest is 8.25, in the first run of this check).
+GRAD_TOL = {"generator": (1e-4, 1e-7), "discriminators": (1e-3, 2e-5)}
+
+
+def vocoder_small_agreement(torch) -> None:
+    """One GAN step on the small fp32 generator (64 channels, the flagship's
+    upsampling; weights scaled by fan-in) with two periods, one resolution
+    and one mel scale, on the card (K1 forward, K1b backward) and on the
+    CPU (their plain versions), from the same weights and batch: every
+    gradient leaf before the optimizer, the latent's among them, within
+    GRAD_TOL; conv_pre's and the latent's gradients non-zero and within
+    1e-3 relative (fault C6); K1 and K1b once per activation on the card;
+    then train_step on each at lr 1e-5: metrics within 1e-4, parameters
+    within 2 lr (Adam lifts a near-zero gradient's rounding to about lr)."""
+    from indextts_tpu_torch.config import BigVGANConfig
+    from indextts_tpu_torch.ops.cuda import anti_alias
+    from indextts_tpu_torch.train import optim, vocoder
+
+    cfg = BigVGANConfig(**SMALL_MODEL["bigvgan"])
+    tc = vocoder.VocoderTrainConfig(batch_size=2, segment_codes=8, periods=(2, 3),
+                                    resolutions=((512, 50, 240),), mel_scales=((512, 128),),
+                                    lr=1e-5)
+    opt = vocoder.make_optimizer(tc)
+    g = torch.Generator().manual_seed(41)
+    cpu, aux = vocoder.init_state(g, cfg, opt, periods=tc.periods, resolutions=tc.resolutions)
+    # weights scaled by fan-in (the generator's own init, std 0.01, leaves
+    # conv_pre a gradient near 1e-5 of the largest, a sum that cancels) and
+    # activations off their zero init
+    gp = cpu.gen_params
+    convs = [gp["conv_pre"], gp["conv_post"], *gp["ups"]] + [
+        c for blk in gp["resblocks"] for c in blk["convs1"] + blk["convs2"]]
+    for c in convs:
+        w = c["w"]
+        w.copy_(0.5 / math.sqrt(w.shape[-2] * w.shape[-1]) * torch.randn(w.shape, generator=g))
+    for blk in gp["resblocks"]:
+        for act in blk["acts"]:
+            for k in ("alpha", "beta"):
+                act[k].copy_(0.3 * torch.randn(act[k].shape, generator=g))
+    card = _state_to(torch, cpu, "cuda")
+    batch = next(vocoder.synthetic_batches(cfg, tc))
+    n_acts = len(cfg.upsample_rates) * 2 * len(cfg.resblock_dilation_sizes[0]) + 1
+    k1, k1b = anti_alias.fused_anti_alias_activation, anti_alias.anti_alias_activation_backward
+    out = {}
+    for dev, state in (("cuda", card), ("cpu", cpu)):
+        b = vocoder.to_device(batch, tc.batch_size, dev)
+        k1.launches = k1b.launches = 0
+        grads = gan_step_grads(torch, state, b, aux, cfg, opt, tc)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched = (k1.launches, k1b.launches)
+        new, metrics = vocoder.train_step(state, b, aux, cfg, opt, tc)
+        out[dev] = (grads, launched, new, {k: float(v) for k, v in metrics.items()})
+    (dg_c, gg_c), launched, new_c, m_c = out["cuda"]
+    (dg_p, gg_p), _, new_p, m_p = out["cpu"]
+    worst, worst_leaf = {}, {}
+    for name, a, b in (("discriminators", dg_c, dg_p), ("generator", gg_c, gg_p)):
+        la, lb = optim.tree_leaves(a), optim.tree_leaves(b)
+        top = max(float(x.abs().max()) for x in lb)
+        leaf_tol, tree_tol = GRAD_TOL[name]
+        ratios = [float((x.cpu() - y).abs().max() / (leaf_tol * y.abs().max() + tree_tol * top))
+                  for x, y in zip(la, lb)]
+        i = max(range(len(ratios)), key=ratios.__getitem__)
+        worst[name] = ratios[i]
+        worst_leaf[name] = {"leaf": i, "of": len(lb), "shape": list(lb[i].shape),
+                            "max_abs_cpu": float(lb[i].abs().max()), "tree_max": top,
+                            "max_abs_err": float((la[i].cpu() - lb[i]).abs().max())}
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())  # noqa: E731
+    c6 = {k: {"max_abs_cpu": float(b.abs().max()), "rel_err": rel(a, b)}
+          for k, a, b in (("conv_pre.w", gg_c["gen"]["conv_pre"]["w"],
+                           gg_p["gen"]["conv_pre"]["w"]),
+                          ("latent", gg_c["latent"], gg_p["latent"]))}
+    m_err = max(abs(m_c[k] - m_p[k]) / abs(m_p[k]) for k in m_p)
+    p_err = max(float((x.cpu() - y).abs().max()) for x, y in zip(
+        optim.tree_leaves([new_c.gen_params, new_c.disc_floats]),
+        optim.tree_leaves([new_p.gen_params, new_p.disc_floats])))
+    ok = (max(worst.values()) <= 1.0 and all(v["max_abs_cpu"] > 0 and v["rel_err"] <= 1e-3
+                                             for v in c6.values())
+          and launched == (n_acts, n_acts) and m_err <= 1e-4 and p_err <= 2 * tc.lr)
+    emit({"phase": "vocoder GAN step, small fp32 generator, card (K1, K1b) against CPU "
+                   "(plain versions)", "activations": n_acts,
+          "card_K1_K1b_launches_in_gradients": list(launched),
+          "grad_tol_leaf_tree": GRAD_TOL, "grad_err_over_tolerance": worst,
+          "worst_leaf": worst_leaf, "c6_gradients": c6,
+          "metrics_cuda": m_c, "metrics_rel_err": m_err, "updated_params_max_abs_err": p_err,
+          "params_tol": 2 * tc.lr, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"vocoder small step: grads {worst}, C6 {c6}, launches {launched}, "
+                           f"metrics {m_err}, params {p_err}")
+
+
+def vocoder_train(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
+    """Vocoder fine-tuning at full width (BigVGAN 1536 channels, batch 8,
+    24-code segments, fp32 with TF32 off, the recipe's five periods, three
+    resolutions and three mel scales; random weights from seed 42):
+    - 20 steps of `train_vocoder` on synthetic batches, each step between
+      CUDA events, K1 and K1b launches counted a step: step ms (median, the
+      first excluded), samples/s, peak memory, the model-FLOPs share of the
+      fp32 peak, a profile of one step; its checkpoint loads back equal;
+    - 3 steps through `python -m indextts_tpu_torch.train.vocoder
+      --processed` over the extraction output of `extract_and_dvae` (under
+      `root`) with its full-width GPT, fine-tuning the first run's generator;
+    - the loop closed: the trained generator, rounded to the engine's bf16
+      vocoder type (so that the file's weight-norm fold lands on the same
+      bf16 weights), through save_bigvgan_pth into an IndexTTS engine with
+      that GPT; one greedy request: K1 109 times a vocode, K1b never, its
+      vocoder output bit-equal to vocoding the captured latents with the
+      in-memory generator, and the speaker similarity of its wav to the
+      prompt (random weights: a number, not a quality claim).
+    Returns (K1 launches, K1b launches) over these paths."""
+    import numpy as np
+    from scipy.io import wavfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.config import BigVGANConfig
+    from indextts_tpu_torch.io import checkpoint, export
+    from indextts_tpu_torch.models import bigvgan
+    from indextts_tpu_torch.ops.cuda import anti_alias
+    from indextts_tpu_torch.train import optim, vocoder
+    from indextts_tpu_torch.train.lora import tree_map
+    from indextts_tpu_torch.utils import eval_metrics
+
+    k1, k1b = anti_alias.fused_anti_alias_activation, anti_alias.anti_alias_activation_backward
+    cfg = BigVGANConfig()
+    tc = vocoder.VocoderTrainConfig(steps=20, log_every=20, checkpoint_every=0)
+    inner = vocoder.train_step
+    steps, last = [], []
+
+    def timed_step(state, batch, *args):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        n0 = (k1.launches, k1b.launches)
+        e0.record()
+        out = inner(state, batch, *args)
+        e1.record()
+        steps.append((e0, e1, (k1.launches - n0[0], k1b.launches - n0[1]), out[1]))
+        last[:] = [out[0], batch, args]
+        return out
+
+    def launches_per_step(run):
+        return sorted({n for _, _, n, _ in run})
+
+    model_dir = os.path.join(root, "model")
+    for k in kernels.values():
+        k.launches = 0
+    k1b.launches = 0
+    run_dir = os.path.join(root, "vocoder_synthetic")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vocoder.train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        vocoder.train_vocoder(cfg, tc, vocoder.synthetic_batches(cfg, tc), run_dir,
+                              device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        synthetic, steps = steps, []
+        state, batch, step_args = last
+        # the same loop over the extraction output, through the CLI, from
+        # this run's generator
+        export.save_bigvgan_pth(os.path.join(model_dir, "bigvgan_generator.pth"),
+                                tree_map(lambda p: p.bfloat16().float(), state.gen_params), cfg)
+        t0 = time.perf_counter()
+        vocoder.main(["--processed", os.path.join(root, "extracted"), "--model_dir", model_dir,
+                      "--out", os.path.join(root, "vocoder_latents"), "--steps", "3",
+                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        latent_s = time.perf_counter() - t0
+        latent_run = steps
+        trained = last[0]
+    finally:
+        vocoder.train_step = inner
+    n_k1, n_k1b = k1.launches, k1b.launches
+
+    ms = [a.elapsed_time(b) for a, b, _, _ in synthetic]
+    step_ms = float(np.median(ms[1:]))
+    losses = [{k: float(v) for k, v in m.items()} for _, _, _, m in synthetic]
+    lat_losses = [{k: float(v) for k, v in m.items()} for _, _, _, m in latent_run]
+    finite = all(math.isfinite(v) for m in losses + lat_losses for v in m.values())
+    ck = checkpoint.load_pytree(os.path.join(run_dir, f"vocoder_step_{tc.steps}"))
+    saved = ck["step"] == tc.steps and [d["period"] for d in ck["disc_params"]["mpd"]] == \
+        list(tc.periods) and all(torch.equal(a, b.cpu()) for a, b in zip(
+            optim.tree_leaves(ck["gen_params"]), optim.tree_leaves(state.gen_params)))
+    del ck
+    flops = vocoder_step_flops(cfg, tc)
+    torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731  (us)
+    for _ in range(3):   # a trace that came back without device events is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            inner(state, batch, *step_args)
+            torch.cuda.synchronize()
+            wall_step = time.perf_counter() - w0
+        launched = kernel_events(torch, prof.key_averages())
+        if launched:
+            break
+    busy_us = sum(dev(e) for e in launched)
+    k1b_us = sum(dev(e) for e in launched if "anti_alias_backward" in e.key)
+    k1_us = sum(dev(e) for e in launched if "anti_alias_kernel" in e.key)
+    del state, batch, step_args
+    torch.cuda.empty_cache()
+    emit({"phase": "vocoder training, full width (BigVGAN 1536 channels), batch 8, 24 codes, "
+                   "fp32 with TF32 off, synthetic batches, 20 steps", "card": card_line(),
+          "train_s": train_s, "step_ms_median": step_ms, "step_ms_first": ms[0],
+          "step_ms_min_max": [min(ms[1:]), max(ms[1:])],
+          "samples_per_s": tc.batch_size / (step_ms / 1e3), "peak_mem_gib": peak,
+          "K1_K1b_launches_per_step": launches_per_step(synthetic),
+          "model_gflop_per_step": flops["per_step"] / 1e9,
+          "generator_gflop_forward_per_sample": flops["generator_forward_per_sample"] / 1e9,
+          "discriminators_gflop_forward_per_sample":
+              flops["discriminators_forward_per_sample"] / 1e9,
+          "model_flops_share_fp32_peak": flops["per_step"] / (step_ms / 1e3) / FP32_FLOPS,
+          "flops_formula": "B x (3 x generator forward + 9 x discriminators forward); convs "
+                           "2 x in x out x k an output position, K1 56 flops an element; "
+                           "ECAPA, STFTs and mel losses left out; over 67e12 fp32",
+          "losses_first": losses[0], "losses_last": losses[-1],
+          "checkpoint_equals_last_state": saved,
+          "profile_one_step": {"wall_ms": wall_step * 1e3, "device_busy_ms": busy_us / 1e3,
+                               "device_busy_share": busy_us / 1e6 / wall_step,
+                               "K1b_device_ms": k1b_us / 1e3, "K1_device_ms": k1_us / 1e3,
+                               "kernels": sum(e.count for e in launched),
+                               "top_kernels_device_ms": {
+                                   e.key[:80]: dev(e) / 1e3 for e in
+                                   sorted(launched, key=dev, reverse=True)[:8]}}})
+    emit({"phase": "vocoder training over the extraction output (latent_batches, the "
+                   "full-width GPT), through the CLI, 3 steps", "s": latent_s,
+          "step_ms": [a.elapsed_time(b) for a, b, _, _ in latent_run],
+          "K1_K1b_launches_per_step": launches_per_step(latent_run), "losses": lat_losses})
+    if not finite or not saved or len(ms) != 20 or len(latent_run) != 3 \
+            or launches_per_step(synthetic + latent_run) != [(K1_PER_VOCODE, K1_PER_VOCODE)]:
+        raise SmokeFailure(f"vocoder training: finite {finite}, checkpoint {saved}, launches "
+                           f"{launches_per_step(synthetic + latent_run)}")
+
+    # the loop closed: the trained generator served
+    serve_dir = os.path.join(root, "served_vocoder")
+    os.makedirs(serve_dir)
+    for f in ("vocab.txt", "gpt.pth"):
+        os.link(os.path.join(model_dir, f), os.path.join(serve_dir, f))
+    serving = tree_map(lambda p: p.bfloat16(), trained.gen_params)
+    export.save_bigvgan_pth(os.path.join(serve_dir, "bigvgan_generator.pth"),
+                            tree_map(torch.Tensor.float, serving), cfg)
+    del trained
+    torch.cuda.empty_cache()
+    eng = engine_mod.IndexTTS(cfg_path=None, model_dir=serve_dir, device="cuda", seed=0)
+    vocode, captured = eng._vocode, []
+
+    def capture(latent, mel_ref):
+        wav = vocode(latent, mel_ref)
+        captured.append((latent.clone(), mel_ref.clone(), wav.clone()))
+        return wav
+
+    eng._vocode = capture
+    for k in kernels.values():
+        k.launches = 0
+    k1b.launches = 0
+    path = os.path.join(root, "served_vocoder.wav")
+    eng.infer(prompt, FT_SENTENCES[0], path, num_beams=1, do_sample=False, max_mel_tokens=120)
+    served = (k1.launches, k1b.launches)
+    n_k1 += k1.launches
+    with torch.no_grad():
+        ref = [torch.clamp(32767.0 * bigvgan.forward(serving, lat.bfloat16(), mel.bfloat16(),
+                                                     cfg).float(), -32767.0, 32767.0)
+               .to(torch.int16) for lat, mel, _ in captured]
+    bit_equal = len(captured) > 0 and all(torch.equal(r, w) for r, (_, _, w) in
+                                          zip(ref, captured))
+    sr, wav = wavfile.read(path)
+    _, pw = wavfile.read(prompt)
+    sim = eval_metrics.speaker_similarity(
+        tree_map(torch.Tensor.float, serving), wav.astype(np.float32) / 32768.0,
+        pw.astype(np.float32) / 32768.0)
+    emit({"phase": "the loop closed: the trained generator (bf16) through "
+                   "bigvgan_generator.pth into an IndexTTS engine, one greedy request",
+          "vocodes": len(captured), "K1_K1b_launches": list(served),
+          "vocoder_output_bit_equal_in_memory": bit_equal, "samples": int(wav.shape[0]),
+          "sample_rate": sr, "speaker_similarity_to_prompt": sim,
+          "note": "random weights: the similarity is a number, not a quality claim"})
+    if not bit_equal or served != (K1_PER_VOCODE * len(captured), 0) or sr != 24000:
+        raise SmokeFailure(f"served trained vocoder: bit-equal {bit_equal}, launches {served}")
+    del eng, serving
+    torch.cuda.empty_cache()
+    return n_k1, n_k1b
+
+
+def vocoder_finetune(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
+    """The vocoder slice: K1b's checks, the small card-vs-CPU step, the
+    full-width training and the served result.  Returns (the K1b kernels-line
+    entry, K1 launches, K1b launches on the path)."""
+    from indextts_tpu_torch.ops import filters
+    from indextts_tpu_torch.ops.cuda import anti_alias
+
+    t0 = time.perf_counter()
+    entry = kernel_checks_anti_alias_backward(torch, filters,
+                                              anti_alias.anti_alias_activation_backward)
+    vocoder_small_agreement(torch)
+    n_k1, n_k1b = vocoder_train(torch, engine_mod, kernels, prompt, root)
+    emit({"phase": "vocoder fine-tuning slice", "s": time.perf_counter() - t0,
+          "K1b_ms_per_step": {k: entry[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                     "bound_by")},
+          "K1_launches": n_k1, "K1b_launches": n_k1b})
+    return entry, n_k1, n_k1b
 
 
 def main(argv=None) -> int:
     import argparse
+    import shutil
 
     import torch
 
@@ -3204,7 +3750,14 @@ def main(argv=None) -> int:
     launches["fused_anti_alias_activation"] += n["K1"]
     # the DVAE and extraction slice: its path reaches no kernel, with the
     # counts at 0 just before it and read just after
-    extract_and_dvae(torch, out_dir)
+    extract_root = extract_and_dvae(torch, out_dir)
+    # the vocoder fine-tuning slice over that extraction output: K1 forward
+    # and K1b backward, the counts at 0 just before each path, read just after
+    k1b_entry, n_k1, n_k1b = vocoder_finetune(torch, engine_mod, kernels, prompt, extract_root)
+    shutil.rmtree(extract_root)
+    entries.insert(1, k1b_entry)
+    launches["fused_anti_alias_activation"] += n_k1
+    launches["anti_alias_activation_backward"] = n_k1b
     # the LoRA fine-tuning slice: its served requests with the counts at 0
     # just before each, read just after
     n = lora_finetune(torch, engine_mod, kernels, prompt, out_dir)

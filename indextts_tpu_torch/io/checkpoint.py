@@ -499,10 +499,11 @@ _ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
 def save_pytree(path: str, tree: Dict[str, Any]) -> None:
-    """Write a tree of dicts (string keys) over tensors and int / float
-    scalars as a directory: the arrays in `arrays.npz` (bf16 as its uint16
-    bits) and the structure, dtypes and scalars in `pytree.json`.  No
-    pickle.  Replaces the directory's files if they exist."""
+    """Write a tree of dicts (string keys), lists and tuples over tensors and
+    int / float scalars as a directory: the arrays in `arrays.npz` (bf16 as
+    its uint16 bits) and the structure, dtypes and scalars in
+    `pytree.json`.  No pickle.  Replaces the directory's files if they
+    exist."""
     arrays: Dict[str, np.ndarray] = {}
 
     def node(x, where):
@@ -511,6 +512,9 @@ def save_pytree(path: str, tree: Dict[str, Any]) -> None:
             if bad:
                 raise TypeError(f"{where}: keys must be strings, got {bad!r}")
             return {"dict": {k: node(v, f"{where}.{k}") for k, v in x.items()}}
+        if isinstance(x, (list, tuple)):
+            kind = "list" if isinstance(x, list) else "tuple"
+            return {kind: [node(v, f"{where}[{i}]") for i, v in enumerate(x)]}
         if isinstance(x, torch.Tensor):
             t = x.detach().cpu().contiguous()
             dtype = str(t.dtype).replace("torch.", "")
@@ -551,6 +555,10 @@ def load_pytree(path: str, device="cpu") -> Any:
         def build(n):
             if "dict" in n:
                 return {k: build(v) for k, v in n["dict"].items()}
+            if "list" in n:
+                return [build(v) for v in n["list"]]
+            if "tuple" in n:
+                return tuple(build(v) for v in n["tuple"])
             if "array" in n:
                 t = torch.from_numpy(npz[n["array"]])
                 if n["dtype"] == "bfloat16":

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch.config import BigVGANConfig, GPTConfig, LoRAConfig, VQVAEConfig
-from indextts_tpu_torch.models import bigvgan, dvae, unified_voice
+from indextts_tpu_torch.models import bigvgan, discriminators, dvae, unified_voice
 from indextts_tpu_torch.train import lora
 
 
@@ -44,6 +44,14 @@ def _quantized_leaf(tree: dict, like: torch.Tensor, device, path: str):
 
 
 def _convert(tree, like, dtype, device, path="params"):
+    if isinstance(like, (int, tuple)):   # a structural int: a discriminator's period, resolution
+        try:
+            got = tuple(int(v) for v in tree) if isinstance(like, tuple) else int(tree)
+        except (TypeError, ValueError):
+            got = tree
+        if got != like:
+            raise ValueError(f"{path}: {got!r} != expected {like!r}")
+        return like
     if isinstance(tree, dict) and isinstance(like, torch.Tensor):
         return _quantized_leaf(tree, like, device, path)
     if isinstance(like, dict):
@@ -95,6 +103,19 @@ def dvae_params_from_numpy(tree: Any, cfg: VQVAEConfig, dtype: Optional[torch.dt
     """DVAE parameters (models/dvae.py's layout) from a numpy tree: the JAX
     package's, or io/checkpoint.load_dvae_checkpoint's."""
     return _convert(tree, dvae.init_params(cfg, None, torch.float32, "meta"), dtype, device)
+
+
+def discriminator_params_from_numpy(tree: Any, periods=(2, 3, 5, 7, 11),
+                                    resolutions=((1024, 120, 600), (2048, 240, 1200),
+                                                 (512, 50, 240)),
+                                    dtype: Optional[torch.dtype] = None, device="cpu"):
+    """The vocoder's discriminators (models/discriminators.py's layout for
+    `periods` and `resolutions`) from the JAX package's numpy tree; the
+    structural ints (`period`, `resolution`) are checked and kept."""
+    like = discriminators.init_discriminators(None, tuple(periods),
+                                              tuple(tuple(r) for r in resolutions),
+                                              torch.float32, "meta")
+    return _convert(tree, like, dtype, device)
 
 
 def lora_params_from_numpy(tree: Any, cfg: GPTConfig, lora_cfg: LoRAConfig, device="cpu"):

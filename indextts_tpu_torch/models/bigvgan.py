@@ -10,7 +10,9 @@ activations -> conv_post(7) -> tanh.  The ECAPA speaker embedding is added by
 into plain weights.
 
 Every activation goes through ops/cuda/anti_alias.py: the hand-written
-kernel for CUDA tensors, its plain version for CPU tensors.
+kernel for CUDA tensors, its plain version for CPU tensors; where a
+gradient is needed (vocoder training), its backward is the hand-written
+K1b, or its plain version on the CPU.
 """
 
 from __future__ import annotations

@@ -101,3 +101,76 @@ def anti_aliased_activation(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Te
     y = upsample2x(x.float(), kernel_size)
     y = snake_beta(y, alpha.float(), beta.float(), logscale)
     return downsample2x(y, kernel_size).to(x.dtype)
+
+
+# The 12-tap 2x up and down filters on their replicate padding in polyphase
+# form, as the CUDA kernels compute them (csrc/anti_alias.cu):
+#   u_e[n] = 2 sum_j f[2j] xc[n+j-3],  u_o[n] = 2 sum_j f[2j+1] xc[n+j-2]
+#   y[t] = sum_k f[k] A[clamp(2t+k-5, 0, 2T-1)],  A[2n] = snake(u_e[n]), A[2n+1] = snake(u_o[n])
+# with xc[m] = x[clamp(m, 0, T-1)].
+
+
+def anti_aliased_activation_backward(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                                     grad_y: torch.Tensor, logscale: bool = True):
+    """The gradient of `anti_aliased_activation` written out, the plain
+    version of the CUDA kernel csrc/anti_alias_backward.cu: for x and
+    grad_y [B, C, T] and alpha, beta [C], returns (grad_x [B, C, T] in x's
+    type, grad_alpha [C], grad_beta [C] in fp32, or all in fp64 for fp64
+    inputs).  The 2x-rate signal is recomputed from x; math in fp32 (fp64
+    for fp64 inputs, which gradcheck takes).
+
+    Down^T takes g to the 2x-rate grid (the downsampler's replicate padding
+    transposed: the taps that read A below 0 or above 2T-1 accumulate into
+    A[0] and A[2T-1]); the snake's derivative gives gu = ga (1 + (a/b')
+    sin(2 a u)); Up^T takes gu back to x (the upsampler's clamped columns
+    accumulate into x[0] and x[T-1]).  grad_alpha and grad_beta sum
+    ga (u/b') sin(2 a u) and -ga sin^2(a u) / b'^2 over B and the 2x-rate
+    grid, times a and b under `logscale` (b' = b + 1e-9)."""
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, g = x.to(dt), grad_y.to(dt)
+    f = torch.as_tensor(kaiser_sinc_filter1d(0.25, 0.3, 12), dtype=dt, device=xf.device)
+    T = xf.shape[-1]
+    a = alpha.to(dt).view(1, -1, 1)
+    b = beta.to(dt).view(1, -1, 1)
+    if logscale:
+        a, b = torch.exp(a), torch.exp(b)
+    inv_b = 1.0 / (b + 1e-9)
+
+    # Down^T: ga_e[n] = sum_j f[2j+1] g[n+2-j], ga_o[n] = sum_j f[2j] g[n+3-j]
+    gz = F.pad(g, (3, 3))                                   # gz[i] = g[i-3], zero outside
+    ga_e = sum(f[2 * j + 1] * gz[..., 5 - j:5 - j + T] for j in range(6))
+    ga_o = sum(f[2 * j] * gz[..., 6 - j:6 - j + T] for j in range(6))
+    ga_e, ga_o = ga_e.clone(), ga_o.clone()
+    for s in range(min(3, T)):
+        # output t = s reads A below 0 at taps k < 5 - 2s; t = T-1-s above 2T-1 at k > 6 + 2s
+        ga_e[..., 0] += f[:5 - 2 * s].sum() * g[..., s]
+        ga_o[..., T - 1] += f[7 + 2 * s:].sum() * g[..., T - 1 - s]
+
+    # u recomputed: xr[i] = x[clamp(i-3, 0, T-1)]
+    xr = F.pad(xf, (3, 3), mode="replicate")
+    u_e = sum(2 * f[2 * j] * xr[..., j:j + T] for j in range(6))
+    u_o = sum(2 * f[2 * j + 1] * xr[..., j + 1:j + 1 + T] for j in range(6))
+
+    grad_a = torch.zeros_like(a.view(-1))
+    grad_b = torch.zeros_like(b.view(-1))
+    gu = []
+    for ga, u in ((ga_e, u_e), (ga_o, u_o)):
+        s = torch.sin(a * u)
+        sin2 = torch.sin(2 * a * u)
+        gu.append(ga * (1 + a * inv_b * sin2))
+        grad_a = grad_a + (ga * u * inv_b * sin2).sum(dim=(0, 2))
+        grad_b = grad_b + (ga * -(s * s) * inv_b * inv_b).sum(dim=(0, 2))
+    gu_e, gu_o = gu
+    if logscale:
+        grad_a = grad_a * a.view(-1)
+        grad_b = grad_b * b.view(-1)
+
+    # Up^T: grad_xr[i] = sum_j 2 f[2j] gu_e[i-j] + 2 f[2j+1] gu_o[i-j-1], i in [0, T+6)
+    gez = F.pad(gu_e, (5, 6))                               # gez[q] = gu_e[q-5]
+    goz = F.pad(gu_o, (6, 5))                               # goz[q] = gu_o[q-6]
+    grad_xr = sum(2 * f[2 * j] * gez[..., 5 - j:5 - j + T + 6]
+                  + 2 * f[2 * j + 1] * goz[..., 5 - j:5 - j + T + 6] for j in range(6))
+    grad_x = grad_xr[..., 3:3 + T].clone()
+    grad_x[..., 0] += grad_xr[..., :3].sum(-1)
+    grad_x[..., T - 1] += grad_xr[..., 3 + T:].sum(-1)
+    return grad_x.to(x.dtype), grad_a, grad_b

@@ -63,11 +63,22 @@ def frame_signal(audio: torch.Tensor, n_fft: int, hop_length: int,
     already (the batched extractor reflect-pads each clip on the host, so a
     zero-padded batch tail never leaks into a clip's frames)."""
     if center:
-        lead = audio.shape[:-1]
-        x = audio.reshape(-1, 1, audio.shape[-1])
-        pad = n_fft // 2
-        audio = F.pad(x, (pad, pad), mode="reflect")[:, 0].reshape(*lead, -1)
+        audio = reflect_pad(audio, n_fft // 2)
     return audio.unfold(-1, n_fft, hop_length)
+
+
+def reflect_pad(audio: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the last axis by `pad` on both sides, as numpy's (and
+    jnp.pad's) "reflect": a pad as long as the signal or longer reflects
+    again off each end (the multiscale mel loss frames short training
+    crops at n_fft up to 2048), where torch's own reflect pad refuses."""
+    T = audio.shape[-1]
+    if pad < T:
+        lead = audio.shape[:-1]
+        x = audio.reshape(-1, 1, T)
+        return F.pad(x, (pad, pad), mode="reflect")[:, 0].reshape(*lead, -1)
+    idx = np.pad(np.arange(T), (pad, pad), mode="reflect")
+    return audio[..., torch.as_tensor(idx, device=audio.device)]
 
 
 def spectrogram(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,

@@ -1,11 +1,17 @@
 """The trainers' optimizers as explicit state: optax chains written out.
 
 `AdamW` is the DVAE trainer's chain (indextts_tpu/train/dvae.py:69-73),
-over any nested tree:
+over any nested tree of dicts and lists:
 
     clip_by_global_norm(max_grad_norm)
     -> adamw(warmup_cosine_decay_schedule(0, lr, warmup, decay_steps),
              weight_decay), decay on every leaf, biases too
+
+and, given a schedule and its b1, b2, the vocoder trainer's
+(indextts_tpu/train/vocoder.py:91-95):
+
+    clip_by_global_norm(1000) -> adamw(exponential_decay(lr, 1, rate),
+                                       b1=0.8, b2=0.99, weight_decay=0)
 
 `LoRAPlusAdamW` is the LoRA trainer's (indextts_tpu/train/trainer.py:50-81)
 on the same core:
@@ -31,7 +37,7 @@ LoRA+'s two groups update in lockstep, so one count serves both.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
@@ -42,9 +48,11 @@ B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adamw's defaults
 
 
 def tree_leaves(tree):
-    """Leaves in sorted-key order, as JAX flattens a dict."""
+    """Leaves in sorted-key order, as JAX flattens a dict; lists in order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
 
 
@@ -73,18 +81,39 @@ def warmup_cosine(count: torch.Tensor, peak: float, warmup: int,
     return torch.where(c < W, warm, cosine)
 
 
+def exponential_decay(lr: float, transition_steps: int, rate: float) -> Callable:
+    """optax.exponential_decay(lr, transition_steps, rate) as a schedule
+    `count -> lr`: lr * rate^(count / transition_steps) in fp32 (no
+    staircase, no transition_begin, no end value)."""
+    if transition_steps <= 0 or rate == 0:
+        raise ValueError("exponential_decay needs transition_steps > 0 and rate != 0")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = count.float()
+        return torch.where(c <= 0, torch.full_like(c, lr),
+                           lr * torch.pow(rate, c / transition_steps))
+
+    return schedule
+
+
 class AdamW:
     """`init(params) -> state` and `step(grads, state, params) -> (params,
-    state)`: clip by the global norm, then AdamW on one warmup-cosine
-    schedule for every leaf of a nested tree of fp32 tensors."""
+    state)`: clip by the global norm, then AdamW on one schedule for every
+    leaf of a nested tree of fp32 tensors."""
 
-    def __init__(self, lr: float, warmup_steps: int, decay_steps: int,
-                 weight_decay: float, max_grad_norm: float = 1.0):
-        self.lr = float(lr)
+    def __init__(self, lr: Union[float, Callable], warmup_steps: int = 0,
+                 decay_steps: int = 1, weight_decay: float = 0.0,
+                 max_grad_norm: float = 1.0, b1: float = B1, b2: float = B2):
+        """`lr`: a schedule `count -> lr` (an fp32 tensor, e.g.
+        `exponential_decay`), or the peak rate of a warmup-cosine over
+        `warmup_steps` and `decay_steps`."""
+        self.schedule = lr if callable(lr) else None
+        self.lr = None if callable(lr) else float(lr)
         self.warmup = int(warmup_steps)
         self.decay_steps = int(decay_steps)
         self.weight_decay = float(weight_decay)
         self.max_grad_norm = float(max_grad_norm)
+        self.b1, self.b2 = float(b1), float(b2)
 
     def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
         dev = tree_leaves(params)[0].device
@@ -93,6 +122,8 @@ class AdamW:
                 "nu": tree_map(torch.zeros_like, params)}
 
     def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        if self.schedule is not None:
+            return self.schedule(count)
         return warmup_cosine(count, self.lr, self.warmup, self.decay_steps)
 
     def _rates(self, count: torch.Tensor, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -109,12 +140,13 @@ class AdamW:
         count = state["count"]
         count_inc = count + 1
         one = torch.ones((), dtype=torch.float32, device=count.device)
-        bc1 = 1 - (one * B1) ** count_inc.float()
-        bc2 = 1 - (one * B2) ** count_inc.float()
+        b1, b2 = self.b1, self.b2
+        bc1 = 1 - (one * b1) ** count_inc.float()
+        bc2 = 1 - (one * b2) ** count_inc.float()
 
         def leaf(g, mu, nu, p, lr):
-            m = (1 - B1) * g + B1 * mu
-            v = (1 - B2) * (g * g) + B2 * nu
+            m = (1 - b1) * g + b1 * mu
+            v = (1 - b2) * (g * g) + b2 * nu
             u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
             u = u + self.weight_decay * p
             return m, v, (-lr) * u
