@@ -151,7 +151,30 @@
      model_epoch_1: equal greedy codes for a 200-code request, qkv_w equal
      to the bf16 merge bit for bit, a speaker_id request with no prompt
      answers a wav; K2 once a decode step and K1 109 times a vocode.
-11. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
+11. The tools and front ends (`indextts_tpu_torch/tools/`, `verify.py`,
+   `serve/webui.py`, `serve/api.py`, `utils/profiling.py`), after every
+   phase above and over the directories their trainers wrote:
+   - fault C7: `Config.load` of checkpoints_test/config.yaml with `import
+     yaml` failing, its values checked, and the CLI's documented command
+     (`--model_dir checkpoints_test`, `--num_beams 1`) as a subprocess
+     writing a wav;
+   - every bench tool through its `main(argv)` at full width and short
+     settings, each printing its JSON line: `bench` at 1 and 8 rows,
+     `bench_e2e` at beam 1 and at beam 3 `--long` (`infer_fast` included),
+     `bench_pool` plain and on K4 and `--e2e` on K4, `bench_beam_step`
+     (lineage and K3), `bench_beam_pool`, `bench_pool_trunk` (rows, flat
+     and K4 at S = 8 and 64); each launching the kernel it exists for;
+   - `export_pth` on phase 8's `dvae_step_40`, phase 9's `vocoder_step_3`
+     and phase 10's `model_epoch_1`: each file tensor-equal to io/export's
+     for the same tree, and the extractor's codes, the served wav and the
+     fine-tuned engine's greedy codes bit-equal to the in-memory routes;
+   - `verify_weights --dry-run` (the 11-case battery on the card),
+     `eval_quality --self-test`, the WebUI's callbacks over a card engine,
+     one `infer` under `device_trace` and `annotate` (the trace holds the
+     name and K2's kernels), the flagship forward of `tools.entry`, and
+     `serve.api` (its ImportError without FastAPI; with it, `create_app`
+     answering /health and /tts).
+12. Prints a `{"kernels": [...]}` line (K1 with `per_shape`, each stage's
    ms and share of its bound; K1b per training step with `per_shape`; K2
    and K4 one entry per tier, with
    `launches_per_call` and `gbytes_per_s`); before it, on a line of its
@@ -2351,7 +2374,8 @@ def lora_finetune(torch, engine_mod, kernels, prompt: str, out_dir: str) -> dict
     their qkv_w equal to lora.merge in bf16 bit for bit, and a speaker_id
     request with no prompt answers a wav (K2 once a decode step, K1 109
     times a vocode).  Returns the launches by kernel over the served
-    requests."""
+    requests, and what the tools phase reads: the run's directory (which the
+    caller removes), model_epoch_1, the data and that request's codes."""
     import shutil
     import tempfile
 
@@ -2548,8 +2572,8 @@ def lora_finetune(torch, engine_mod, kernels, prompt: str, out_dir: str) -> dict
           "phase_s": time.perf_counter() - t_phase})
     if not codes_equal:
         raise SmokeFailure("lora served: the .pth twin and the merged directory decode apart")
-    shutil.rmtree(root)
-    return launches
+    return launches, {"root": root, "merged_dir": merged_dir, "data": data,
+                      "lora_codes": b, "lora_gen": gen}
 
 
 # the DVAE and extraction slice: a small model whose DVAE has 256 codes
@@ -3674,6 +3698,444 @@ def vocoder_finetune(torch, engine_mod, kernels, prompt: str, root: str) -> tupl
     return entry, n_k1, n_k1b
 
 
+# -- the tools and front ends (config reading without PyYAML, the bench,
+# export, verification and profiling tools, the entry, the WebUI callbacks)
+
+K2_TIERS = {"bf16": "fused_decode_trunk_flat[bf16]", "int8": "fused_decode_trunk_flat[int8]",
+            "int4": "fused_decode_trunk_flat[int4]"}
+NAMES = {"K1": "fused_anti_alias_activation", "K1b": "anti_alias_activation_backward",
+         "K3": "permute_cache_rows"}
+
+
+def _entry_launches(counts: dict, k2_tier=None, k4_tier=None) -> dict:
+    """A tool's launch counts under the kernels line's entry names: K2 and K4
+    under the tier the tool ran (no entry where the line has no such tier)."""
+    out = {NAMES[k]: counts.get(k, 0) for k in NAMES}
+    if k2_tier in K2_TIERS:
+        out[K2_TIERS[k2_tier]] = counts["K2"]
+    if k4_tier:
+        out[f"fused_pool_step[{k4_tier}]"] = counts["K4"]
+    return out
+
+
+def _sum_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
+
+
+def tools_config_and_cli(torch, prompt: str, out_dir: str) -> None:
+    """Fault C7: the port reads its config.yaml with no YAML package (the
+    card machine has none), and the documented CLI command with
+    --model_dir checkpoints_test, which finds that file, writes a wav."""
+    import importlib.util
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from indextts_tpu_torch.config import Config
+
+    path = os.path.join(HERE, "checkpoints_test", "config.yaml")
+    saved = sys.modules.get("yaml")
+    sys.modules["yaml"] = None          # an import of it now raises
+    try:
+        cfg = Config.load(path)
+    finally:
+        if saved is None:
+            del sys.modules["yaml"]
+        else:
+            sys.modules["yaml"] = saved
+    read = {"gpt.layers": cfg.gpt.layers, "gpt.model_dim": cfg.gpt.model_dim,
+            "bigvgan.upsample_rates": cfg.bigvgan.upsample_rates,
+            "bigvgan.resblock_dilation_sizes": cfg.bigvgan.resblock_dilation_sizes,
+            "bigvgan.resblock": cfg.bigvgan.resblock}
+    want = {"gpt.layers": 24, "gpt.model_dim": 1280,
+            "bigvgan.upsample_rates": [4, 4, 4, 4, 2, 2],
+            "bigvgan.resblock_dilation_sizes": [[1, 3, 5]] * 3, "bigvgan.resblock": "1"}
+    wav = os.path.join(out_dir, "cli.wav")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "indextts_tpu_torch.cli", LONG, "-v", prompt,
+                           "-o", wav, "--model_dir", "checkpoints_test", "--num_beams", "1",
+                           "--seed", "0", "-f"], cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    ok_wav = proc.returncode == 0 and os.path.exists(wav)
+    sr, audio = wavfile.read(wav) if ok_wav else (0, np.zeros(0, np.int16))
+    emit({"phase": "C7: config.yaml read without PyYAML, and the CLI with --model_dir "
+                   "checkpoints_test", "pyyaml_installed": importlib.util.find_spec("yaml")
+                   is not None, "read": read, "read_equal": read == want,
+          "cli_rc": proc.returncode, "cli_s": cli_s, "cli_wav_samples": int(audio.shape[0]),
+          "cli_sample_rate": sr, "cli_stdout_tail": proc.stdout[-300:]})
+    if read != want or not ok_wav or sr != 24000 or audio.dtype != np.int16 \
+            or audio.shape[0] == 0:
+        raise SmokeFailure(f"C7: read {read}; CLI rc {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+
+
+def tools_bench(torch, kernels, prompt: str) -> dict:
+    """Every bench tool through its main(argv) at short settings, full width,
+    random weights; each prints its JSON line.  Each must launch the kernel
+    it exists to drive: K2 at one decode row, K1 at every vocode, K3 under
+    reorder "pallas", K4 under impl "fused" and in a pool built on it.
+    Returns the launches by kernels-line entry."""
+    from indextts_tpu_torch.tools import (bench, bench_beam_pool, bench_beam_step, bench_e2e,
+                                          bench_pool, bench_pool_trunk)
+
+    total: dict = {}
+    times = {}
+
+    def run(label, main, argv):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    def fail(what, out):
+        raise SmokeFailure(f"{what}: {json.dumps(out)[:3000]}")
+
+    for argv in (["--batch", "1", "--max-new", "200", "--warmup", "1", "--iters", "2"],
+                 ["--batch", "8", "--max-new", "50", "--warmup", "1", "--iters", "2"]):
+        out = run("bench " + " ".join(argv[:2]), bench.main, argv)
+        for r in out["results"]:
+            k2 = r["launches"]["K2"]
+            if (r["batch"] == 1) != (k2 > 0) or r["tokens_per_s"] <= 0:
+                fail(f"bench {r['tier']} B={r['batch']}: K2 {k2}", out)
+            total = _sum_launches(total, _entry_launches(r["launches"], r["tier"]))
+    for argv in (["--beams", "1"], ["--beams", "3", "--long", "--max-mel-tokens", "16"]):
+        out = run("bench_e2e " + " ".join(argv), bench_e2e.main, argv + ["--prompt", prompt])
+        for mode, r in out["modes"].items():
+            n = r["launches"]
+            if n["K1"] == 0 or (argv[1] == "1" and mode != "infer_fast" and n["K2"] == 0) \
+                    or not r["rtf"] > 0:
+                fail(f"bench_e2e {argv} {mode}", out)
+            total = _sum_launches(total, _entry_launches(n, "int8"))
+    if set(out["modes"]) != {"infer", "infer_fast", "infer_stream"}:
+        fail("bench_e2e --long modes", out)
+    out = run("bench_pool", bench_pool.main, ["--slots", "8", "--reqs", "16", "--iters", "1"])
+    if not out["value"] > 0:
+        fail("bench_pool", out)
+    out = run("bench_pool --fused-trunk", bench_pool.main,
+              ["--slots", "8", "--reqs", "16", "--fused-trunk"])
+    if not out["fused_trunk"] or out["launches"]["K4"] == 0:
+        fail("bench_pool --fused-trunk: K4", out)
+    total = _sum_launches(total, _entry_launches(out["launches"], k4_tier="int8_fp8cache"))
+    out = run("bench_pool --e2e", bench_pool.main,
+              ["--e2e", "--clients", "4", "--reqs", "8", "--fused-trunk"])
+    if out["launches"]["K1"] == 0 or out["launches"]["K4"] == 0 or out["requests"] != 8:
+        fail("bench_pool --e2e", out)
+    total = _sum_launches(total, _entry_launches(out["launches"], k4_tier="int8_fp8cache"))
+    out = run("bench_beam_step", bench_beam_step.main,
+              ["--reorders", "lineage,pallas", "--max-new", "100", "--iters", "2",
+               "--warmup", "1"])
+    k3 = {r["reorder"]: r["launches"]["K3"] for r in out["results"]}
+    if k3.get("lineage") != 0 or not k3.get("pallas"):
+        fail("bench_beam_step: K3 under pallas only", out)
+    for r in out["results"]:
+        total = _sum_launches(total, _entry_launches(r["launches"]))
+    out = run("bench_beam_pool", bench_beam_pool.main,
+              ["--groups", "4", "--reqs", "8", "--max-new", "50"])
+    if not out["value"] > 0:
+        fail("bench_beam_pool", out)
+    for slots in ("8", "64"):
+        out = run(f"bench_pool_trunk S={slots}", bench_pool_trunk.main,
+                  ["--slots", slots, "--steps", "32"])
+        k4 = {r["impl"]: r["launches"]["K4"] for r in out["results"]}
+        if k4 != {"rows": 0, "flat": 0, "fused": 4 * 32}:
+            fail(f"bench_pool_trunk S={slots}: K4 {k4}", out)
+        total = _sum_launches(total, _entry_launches(out["results"][2]["launches"],
+                                                     k4_tier="int8_fp8cache"))
+    emit({"phase": "tools: bench", "s": times, "launches": total})
+    return total
+
+
+def _pth_equal(torch, a: str, b: str) -> bool:
+    """Two .pth files hold the same keys and equal tensors (and arrays)."""
+    import numpy as np
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return isinstance(y, dict) and sorted(x) == sorted(y) and \
+                all(same(x[k], y[k]) for k in x)
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)
+        if isinstance(x, np.ndarray):
+            return isinstance(y, np.ndarray) and x.dtype == y.dtype and np.array_equal(x, y)
+        return x == y
+
+    return same(torch.load(a, map_location="cpu", weights_only=False),
+                torch.load(b, map_location="cpu", weights_only=False))
+
+
+def tools_export(torch, engine_mod, kernels, prompt: str, out_dir: str, trained: dict) -> dict:
+    """`export_pth` on the directories the earlier phases' trainers wrote:
+    the DVAE phase's dvae_step_40, the vocoder phase's vocoder_step_3 (the
+    generator that phase served, rounded to the engine's bf16 vocoder type
+    with --round-to) and the LoRA phase's merged model_epoch_1 (bf16, with
+    the speakers of its data).  Each file equals, tensor for tensor, what io/export's save_*
+    writes for the same tree, and loads into the extractor or the engine
+    with output bit-equal to the route the earlier phase took in memory:
+    the DVAE's codes of extracted mels, the served vocoder request's wav,
+    the fine-tuned engine's greedy codes.  Returns the launches by
+    kernels-line entry."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.data import extract
+    from indextts_tpu_torch.io import checkpoint, export
+    from indextts_tpu_torch.models import dvae
+    from indextts_tpu_torch.tools import export_pth
+    from indextts_tpu_torch.train.lora import tree_map
+
+    t_phase = time.perf_counter()
+    root = os.path.join(out_dir, "export")
+    os.makedirs(root, exist_ok=True)
+    cfg = Config()
+    result, total = {}, {}
+
+    # the DVAE
+    ckpt = trained["dvae_step"]
+    tool = export_pth.main(["dvae", "--ckpt", ckpt, "--out", os.path.join(root, "dvae.pth")])
+    params = checkpoint.load_pytree(ckpt, "cuda")["params"]
+    export.save_dvae_pth(os.path.join(root, "dvae_ref.pth"), params, cfg.vqvae)
+    equal = _pth_equal(torch, tool, os.path.join(root, "dvae_ref.pth"))
+    model = os.path.join(root, "dvae_model")
+    os.makedirs(model)
+    os.link(tool, os.path.join(model, "dvae.pth"))
+    ex = extract.CodecExtractor(cfg, model, device="cuda")
+    mels = [np.load(p) for p in sorted(glob.glob(os.path.join(trained["extracted"], "*", "mels",
+                                                              "*.npy")))[:4]]
+    F = min(m.shape[-1] for m in mels) // 4 * 4
+    mel = torch.as_tensor(np.stack([m.reshape(m.shape[-2], -1)[:, :F] for m in mels]),
+                          device="cuda")
+    got, want = ex.codes(mel), dvae.get_codebook_indices(params, mel, cfg.vqvae)
+    result["dvae"] = {"tensor_equal": equal, "codes_equal": bool(torch.equal(got, want)),
+                      "mels": len(mels), "frames": F}
+    del ex, params
+    torch.cuda.empty_cache()
+
+    # the vocoder: the generator the vocoder phase served
+    ckpt = trained["vocoder_step"]
+    serve_dir = os.path.join(root, "vocoder_model")
+    os.makedirs(serve_dir)
+    for f in ("vocab.txt", "gpt.pth"):
+        os.link(os.path.join(trained["model"], f), os.path.join(serve_dir, f))
+    tool = export_pth.main(["vocoder", "--ckpt", ckpt, "--round-to", "bf16",
+                            "--out", os.path.join(serve_dir, "bigvgan_generator.pth")])
+    gen = checkpoint.load_pytree(ckpt, "cuda")["gen_params"]
+    export.save_bigvgan_pth(os.path.join(root, "bigvgan_ref.pth"),
+                            tree_map(lambda p: p.bfloat16().float(), gen), cfg.bigvgan)
+    equal = _pth_equal(torch, tool, os.path.join(root, "bigvgan_ref.pth"))
+    del gen
+    eng = engine_mod.IndexTTS(cfg_path=None, model_dir=serve_dir, device="cuda", seed=0)
+    for k in kernels.values():
+        k.launches = 0
+    wav = os.path.join(root, "served_vocoder.wav")
+    eng.infer(prompt, FT_SENTENCES[0], wav, num_beams=1, do_sample=False,
+              max_mel_tokens=120)
+    total = _sum_launches(total, {NAMES["K1"]: kernels["K1"].launches,
+                                  K2_TIERS["bf16"]: kernels["K2"].launches})
+    with open(wav, "rb") as a, open(trained["vocoder_wav"], "rb") as b:
+        wav_equal = a.read() == b.read()
+    result["vocoder"] = {"tensor_equal": equal, "wav_bit_equal": wav_equal,
+                         "K1": kernels["K1"].launches}
+    del eng
+    torch.cuda.empty_cache()
+
+    # the LoRA trainer's merged weights
+    tool = export_pth.main(["gpt", "--ckpt", trained["merged_dir"], "--dtype", "bf16",
+                            "--data-path", trained["data"],
+                            "--config", os.path.join(HERE, "checkpoints_test", "config.yaml"),
+                            "--out", os.path.join(root, "gpt_lora.pth")])
+    merged = checkpoint.load_pytree(trained["merged_dir"], "cuda")
+    export.save_gpt_pth(os.path.join(root, "gpt_ref.pth"), merged, cfg.gpt,
+                        extras=export.speaker_extras(trained["data"]), save_dtype="bf16")
+    equal = _pth_equal(torch, tool, os.path.join(root, "gpt_ref.pth"))
+    del merged
+    eng = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
+                              device="cuda", seed=0, gpt_path=tool)
+    for k in kernels.values():
+        k.launches = 0
+    eng.infer(prompt, LONG, os.path.join(root, "lora.wav"), **trained["lora_gen"])
+    total = _sum_launches(total, {NAMES["K1"]: kernels["K1"].launches,
+                                  K2_TIERS["bf16"]: kernels["K2"].launches})
+    codes = eng.last_stats["codes"]
+    want = trained["lora_codes"]
+    codes_equal = len(codes) == len(want) and all(np.array_equal(a, b)
+                                                  for a, b in zip(codes, want))
+    result["gpt"] = {"tensor_equal": equal, "codes_equal_merged_dir": codes_equal,
+                     "speakers": eng.speaker_list, "K2": kernels["K2"].launches}
+    del eng
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    emit({"phase": "tools: export_pth on the trainers' directories", **result,
+          "s": time.perf_counter() - t_phase})
+    if not (result["dvae"]["tensor_equal"] and result["dvae"]["codes_equal"]
+            and result["vocoder"]["tensor_equal"] and result["vocoder"]["wav_bit_equal"]
+            and result["gpt"]["tensor_equal"] and result["gpt"]["codes_equal_merged_dir"]):
+        raise SmokeFailure(f"export_pth: {result}")
+    return total
+
+
+def tools_verify_and_front_ends(torch, kernels, prompt: str, out_dir: str) -> dict:
+    """The verification tools, profiling, the entry and the front ends:
+    verify_weights --dry-run (the 11-case battery on a synthetic model
+    directory, on the card); eval_quality --self-test (self-similarity
+    within 1e-4 of 1); the WebUI's callbacks over a full-width card engine
+    (preview_split, synthesize in normal and fast modes); one infer under
+    device_trace, wrapped in annotate("smoke.infer"), whose Chrome trace
+    must hold that name and K2's kernels; the flagship teacher-forced
+    forward of tools.entry; and serve.api (`tools_api`).  Returns the
+    launches by kernels-line entry."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    from indextts_tpu_torch.serve import webui
+    from indextts_tpu_torch.tools import entry, eval_quality, verify_weights
+    from indextts_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    for k in kernels.values():
+        k.launches = 0
+    report = verify_weights.main(["--dry-run", "--prompt", prompt])
+    n = {k: v.launches for k, v in kernels.items()}
+    cases = report["cases"]
+    emit({"phase": "tools: verify_weights --dry-run", "cases": len(cases),
+          "modes": sorted({c["mode"] for c in cases}), "device": report["device"],
+          "speaker_sim_mean": report["speaker_sim_mean"], "launches": n,
+          "case_wall_s": [c["wall_s"] for c in cases]})
+    if len(cases) != 11 or not report["battery_ok"] or n["K1"] == 0 or n["K2"] == 0:
+        raise SmokeFailure(f"verify_weights --dry-run: {json.dumps(report)[:3000]}")
+    total = _sum_launches(total, {NAMES["K1"]: n["K1"]})   # K2 at fp32: no such entry
+
+    quality = eval_quality.main(["--self-test"])
+    if not quality["ok"] or abs(quality["speaker_sim_self"] - 1.0) >= 1e-4:
+        raise SmokeFailure(f"eval_quality --self-test: {quality}")
+
+    cb = webui.build_callbacks(os.path.join(HERE, "checkpoints_test", "config.yaml"),
+                               os.path.join(HERE, "checkpoints_test"),
+                               out_dir=out_dir, device="cuda")
+    rows = cb["preview_split"](FT_SENTENCES[0] + FT_SENTENCES[1], 20)
+    ui = {"preview_rows": len(rows)}
+    for mode in ("normal", "fast"):
+        for k in kernels.values():
+            k.launches = 0
+        path = cb["synthesize"](prompt, LONG, mode, 100, 4, False, 0.8, 30, 1.0, 10.0, 200,
+                                num_beams=1)
+        sr, audio = wavfile.read(path)
+        n = {k: v.launches for k, v in kernels.items()}
+        ui[mode] = {"samples": int(audio.shape[0]), "sample_rate": sr, "launches": n}
+        if sr != 24000 or audio.dtype.name != "int16" or audio.shape[0] == 0 or n["K1"] == 0:
+            raise SmokeFailure(f"webui synthesize {mode}: {ui}")
+        total = _sum_launches(total, _entry_launches(n, "bf16"))
+    tts = cb["state"]["tts"]
+    for k in kernels.values():
+        k.launches = 0
+    with profiling.device_trace(os.path.join(out_dir, "trace")) as prof:
+        with profiling.annotate("smoke.infer"):
+            tts.infer(prompt, FT_SENTENCES[0], os.path.join(out_dir, "traced.wav"),
+                      num_beams=1, do_sample=False, max_mel_tokens=100)
+    n = {k: v.launches for k, v in kernels.items()}
+    total = _sum_launches(total, _entry_launches(n, "bf16"))
+    with open(prof.trace_path, encoding="utf-8") as f:
+        names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+    trace_mb = os.path.getsize(prof.trace_path) / 2 ** 20
+    shutil.rmtree(os.path.dirname(prof.trace_path))
+    trace = {"file_mb": trace_mb, "launches": n,
+             "annotation": "smoke.infer" in names,
+             "k2_kernels": sorted({x.split("<")[0] for x in names
+                                   if "trunk_in_kernel" in x or "product_kernel" in x})}
+    del cb, tts
+    torch.cuda.empty_cache()
+    ui["trace"] = trace
+    if not trace["annotation"] or not trace["k2_kernels"] or n["K2"] == 0:
+        raise SmokeFailure(f"device_trace: {trace}")
+
+    fwd = entry.main([])
+    torch.cuda.empty_cache()
+    api, n = tools_api(torch, kernels, prompt)
+    total = _sum_launches(total, _entry_launches(n, "bf16"))
+    emit({"phase": "tools: eval_quality, the WebUI callbacks, device_trace, entry, serve.api",
+          "quality_self_similarity": quality["speaker_sim_self"], "webui": ui,
+          "entry": {k: fwd[k] for k in ("loss_text", "loss_mel", "finite", "s")},
+          "serve_api": api, "s": time.perf_counter() - t_phase})
+    if not fwd["finite"] or not api["ok"]:
+        raise SmokeFailure(f"entry {fwd}; serve.api: {api}")
+    return total
+
+
+def tools_api(torch, kernels, prompt: str) -> tuple:
+    """serve/api.py: where FastAPI is missing, its import raises an
+    ImportError naming it; where FastAPI is installed, create_app over a
+    card engine answers /health and one /tts request (greedy, num_beams=1)
+    with a 24 kHz int16 wav, through starlette's TestClient where that
+    imports (and where python-multipart, which form fields need, is
+    installed).  Returns (what it found, the launches by kernel)."""
+    import importlib
+    import io
+
+    from scipy.io import wavfile
+
+    n = {k: 0 for k in kernels}
+    try:
+        api = importlib.import_module("indextts_tpu_torch.serve.api")
+    except ImportError as e:
+        return {"fastapi": False, "error": str(e), "ok": "fastapi" in str(e)}, n
+    try:
+        app = api.create_app(os.path.join(HERE, "checkpoints_test", "config.yaml"),
+                             os.path.join(HERE, "checkpoints_test"), device="cuda")
+    except RuntimeError as e:    # FastAPI's form fields need python-multipart
+        if "multipart" not in str(e):
+            raise
+        return {"fastapi": True, "error": str(e), "ok": True}, n
+    routes = sorted(r.path for r in app.routes if r.path in
+                    ("/health", "/models", "/model/reload", "/tts", "/tts_stream"))
+    found = {"fastapi": True, "routes": routes}
+    try:
+        from fastapi.testclient import TestClient
+    except ImportError as e:   # starlette's client needs httpx
+        app.state.service.close()
+        return {**found, "client": str(e), "ok": len(routes) == 5}, n
+    for k in kernels.values():
+        k.launches = 0
+    with TestClient(app) as client:
+        health = client.get("/health").json()
+        r = client.post("/tts", data={"text": FT_SENTENCES[0], "audio_path": prompt,
+                                      "num_beams": "1", "do_sample": "false",
+                                      "max_mel_tokens": "100"})
+    n = {k: v.launches for k, v in kernels.items()}
+    sr, audio = wavfile.read(io.BytesIO(r.content)) if r.status_code == 200 else (0, None)
+    found.update(health=health, tts_status=r.status_code, sample_rate=sr,
+                 samples=0 if audio is None else int(audio.shape[0]), launches=n)
+    found["ok"] = len(routes) == 5 and health.get("status") == "ok" and sr == 24000 \
+        and audio is not None and audio.dtype.name == "int16" and n["K1"] > 0
+    return found, n
+
+
+def tools_phase(torch, engine_mod, kernels, prompt: str, out_dir: str, trained: dict) -> dict:
+    """The tools and front ends slice, after every earlier phase: C7, the
+    bench tools, export_pth on the earlier phases' directories, the
+    verification tools, profiling, the entry and the front ends.  Returns the
+    launches by kernels-line entry."""
+    t0 = time.perf_counter()
+    root = os.path.join(out_dir, "tools")
+    os.makedirs(root, exist_ok=True)
+    tools_config_and_cli(torch, prompt, root)
+    total = tools_bench(torch, kernels, prompt)
+    total = _sum_launches(total, tools_export(torch, engine_mod, kernels, prompt, root,
+                                              trained))
+    total = _sum_launches(total, tools_verify_and_front_ends(torch, kernels, prompt, root))
+    emit({"phase": "tools and front ends", "s": time.perf_counter() - t0, "launches": total})
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
     import shutil
@@ -3754,13 +4216,12 @@ def main(argv=None) -> int:
     # the vocoder fine-tuning slice over that extraction output: K1 forward
     # and K1b backward, the counts at 0 just before each path, read just after
     k1b_entry, n_k1, n_k1b = vocoder_finetune(torch, engine_mod, kernels, prompt, extract_root)
-    shutil.rmtree(extract_root)
     entries.insert(1, k1b_entry)
     launches["fused_anti_alias_activation"] += n_k1
     launches["anti_alias_activation_backward"] = n_k1b
     # the LoRA fine-tuning slice: its served requests with the counts at 0
     # just before each, read just after
-    n = lora_finetune(torch, engine_mod, kernels, prompt, out_dir)
+    n, trained = lora_finetune(torch, engine_mod, kernels, prompt, out_dir)
     launches["fused_anti_alias_activation"] += n["K1"]
     launches["fused_decode_trunk_flat[bf16]"] += n["K2"]
     # the beam-reorder path: counts at 0 just before it, read just after
@@ -3775,6 +4236,17 @@ def main(argv=None) -> int:
     for tier in ("bf16", "int8_fp8cache"):
         launches[f"fused_pool_step[{tier}]"] = served(torch, engine_mod, httpd, kernels,
                                                       prompt, tier)
+    # the tools and front ends, over the directories the trainers wrote:
+    # the counts at 0 just before each tool, read just after
+    trained.update(dvae_step=os.path.join(extract_root, "dvae_run", "dvae_step_40"),
+                   extracted=os.path.join(extract_root, "extracted"),
+                   model=os.path.join(extract_root, "model"),
+                   vocoder_step=os.path.join(extract_root, "vocoder_latents", "vocoder_step_3"),
+                   vocoder_wav=os.path.join(extract_root, "served_vocoder.wav"))
+    for name, n in tools_phase(torch, engine_mod, kernels, prompt, out_dir, trained).items():
+        launches[name] = launches.get(name, 0) + n
+    shutil.rmtree(extract_root)
+    shutil.rmtree(trained["root"])
     for e in entries:
         e["launches"] = launches[e["name"]]
         if e["launches"] == 0:

@@ -3,9 +3,10 @@
 A copy of the JAX package's schema (indextts_tpu/config.py), kept in this
 package so the port never imports the JAX one.  It mirrors the reference
 OmegaConf YAML layout (finetune_models/config.yaml:1-276) as plain
-dataclasses; unknown keys are ignored.  PyYAML is imported only by
-`Config.load`; `Config.save` writes YAML itself, so the defaults and the
-trainer work without it.
+dataclasses; unknown keys are ignored.  The package reads and writes that
+YAML itself (`load_yaml`, `to_yaml`), with no YAML package: the subset that
+config files use, scalars resolved as `yaml.safe_load` resolves them
+(YAML 1.1), and an error naming the line for anything outside it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import json
 import math
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
@@ -329,10 +330,9 @@ class Config:
 
     @classmethod
     def load(cls, path: str) -> "Config":
-        import yaml
-
-        with open(path, "r", encoding="utf-8") as f:
-            return cls.from_dict(yaml.safe_load(f))
+        """Read a config YAML with this module's reader (`load_yaml`): no
+        YAML package needed."""
+        return cls.from_dict(read_yaml(path))
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -396,3 +396,344 @@ def to_yaml(tree: Dict[str, Any], indent: int = 0) -> str:
         else:
             lines.append(f"{pad}{_yaml_key(k)}: {_yaml_flow(v)}\n")
     return "".join(lines)
+
+
+# -- reading YAML -------------------------------------------------------------
+# The implicit scalar types of PyYAML's SafeLoader (YAML 1.1; yaml/resolver.py
+# and yaml/constructor.py of PyYAML 6): a plain scalar that matches none of
+# these is a string.
+_NULL = re.compile(r"^(?:~|null|Null|NULL)$")
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                   r"|on|On|ON|off|Off|OFF)$")
+_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+
+                    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                      |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                      |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                      |[-+]?\.(?:inf|Inf|INF)
+                      |\.(?:nan|NaN|NAN))$""", re.X)
+# forms safe_load reads as something this reader does not build: dates and
+# times, the merge key and the value key
+_UNSUPPORTED = re.compile(r"""^(?:[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?
+                            (?:(?:[Tt]|[ \t]+)[0-9][0-9]?:[0-9][0-9]:[0-9][0-9].*)?
+                            |<<|=)$""", re.X)
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
+            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
+            "N": "\x85", "_": "\xa0", "L": "\u2028", "P": "\u2029"}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+
+
+class YAMLError(ValueError):
+    """Input outside the subset `load_yaml` reads; the message names the line."""
+
+
+def _sexagesimal(value: str, cast):
+    total, base = cast(0), 1
+    for part in reversed(value.split(":")):
+        total += cast(part) * base
+        base *= 60
+    return total
+
+
+def _yaml_int(value: str) -> int:
+    value = value.replace("_", "")
+    sign = -1 if value[0] == "-" else 1
+    value = value.lstrip("+-")
+    if value == "0":
+        return 0
+    if value.startswith("0b"):
+        return sign * int(value[2:], 2)
+    if value.startswith("0x"):
+        return sign * int(value[2:], 16)
+    if value[0] == "0":
+        return sign * int(value, 8)
+    if ":" in value:
+        return sign * _sexagesimal(value, int)
+    return sign * int(value)
+
+
+def _yaml_float(value: str) -> float:
+    value = value.replace("_", "").lower()
+    sign = -1.0 if value[0] == "-" else 1.0
+    value = value.lstrip("+-")
+    if value == ".inf":
+        return sign * math.inf
+    if value == ".nan":
+        return math.nan
+    if ":" in value:
+        return sign * _sexagesimal(value, float)
+    return sign * float(value)
+
+
+def _resolve_plain(text: str, where: str) -> Any:
+    """A plain (unquoted) scalar as safe_load types it."""
+    if text == "" or _NULL.match(text):
+        return None
+    if _BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    try:
+        if _INT.match(text):
+            return _yaml_int(text)
+        if _FLOAT.match(text):
+            return _yaml_float(text)
+    except ValueError:   # e.g. "0b_": safe_load fails on it too
+        raise YAMLError(f"{where}: cannot read the number {text!r}") from None
+    if _UNSUPPORTED.match(text):
+        raise YAMLError(f"{where}: {text!r} is a date, a merge or a value key, which this "
+                        "reader does not build")
+    return text
+
+
+def _quoted(s: str, i: int, where: str) -> Tuple[str, int]:
+    """The quoted scalar that starts at s[i]; returns (value, index after it)."""
+    q = s[i]
+    out = []
+    j = i + 1
+    while j < len(s):
+        c = s[j]
+        if q == "'" and c == "'":
+            if s[j + 1:j + 2] == "'":
+                out.append("'")
+                j += 2
+                continue
+            return "".join(out), j + 1
+        if q == '"' and c == '"':
+            return "".join(out), j + 1
+        if q == '"' and c == "\\":
+            e = s[j + 1:j + 2]
+            if e in _ESCAPES:
+                out.append(_ESCAPES[e])
+                j += 2
+            elif e in _HEX_ESCAPES:
+                n = _HEX_ESCAPES[e]
+                digits = s[j + 2:j + 2 + n]
+                if len(digits) != n or not all(d in "0123456789abcdefABCDEF" for d in digits):
+                    raise YAMLError(f"{where}: bad escape \\{e}{digits}")
+                out.append(chr(int(digits, 16)))
+                j += 2 + n
+            else:
+                raise YAMLError(f"{where}: unknown escape \\{e} in a double-quoted string")
+            continue
+        out.append(c)
+        j += 1
+    raise YAMLError(f"{where}: a quoted string runs past the end of its line (multi-line "
+                    "strings are not read)")
+
+
+def _check_plain_start(text: str, where: str) -> None:
+    c = text[:1]
+    if c in ("&", "*", "!"):
+        raise YAMLError(f"{where}: anchors, aliases and tags are not read")
+    if c in ("|", ">"):
+        raise YAMLError(f"{where}: block scalars are not read")
+    if c in ("%", "@", "`") or (c in ("?", "-", ":") and text[1:2] in ("", " ", "\t")):
+        raise YAMLError(f"{where}: cannot read {text!r}")
+
+
+def _comment_or_end(s: str, i: int, where: str) -> None:
+    rest = s[i:]
+    if rest.strip() and not (rest[:1] in (" ", "\t") and rest.strip().startswith("#")):
+        raise YAMLError(f"{where}: unexpected {rest.strip()!r}")
+
+
+def _flow(s: str, i: int, where: str) -> Tuple[Any, int]:
+    """The flow collection ([...] or {...}) that starts at s[i], on one line."""
+    close = "]" if s[i] == "[" else "}"
+    items: List[Any] = []
+    pairs: Dict[Any, Any] = {}
+    j = i + 1
+
+    def skip(j):
+        while j < len(s) and s[j] in " \t":
+            j += 1
+        return j
+
+    def node(j, stops):
+        j = skip(j)
+        if j >= len(s):
+            raise YAMLError(f"{where}: a flow collection runs past the end of its line")
+        if s[j] in "[{":
+            return _flow(s, j, where)
+        if s[j] in "'\"":
+            return _quoted(s, j, where)
+        k = j
+        while k < len(s) and s[k] not in stops and not (s[k] == ":" and s[k + 1:k + 2] in
+                                                         ("", " ", "\t", ",", close)):
+            if s[k] == "#" and s[k - 1] in " \t":
+                raise YAMLError(f"{where}: a comment inside a flow collection")
+            k += 1
+        text = s[j:k].rstrip()
+        if not text:
+            raise YAMLError(f"{where}: an empty entry in a flow collection")
+        _check_plain_start(text, where)
+        return _resolve_plain(text, where), k
+
+    j = skip(j)
+    if s[j:j + 1] == close:
+        return ({} if close == "}" else []), j + 1
+    while True:
+        value, j = node(j, ",[]{}")
+        j = skip(j)
+        if close == "}":
+            if s[j:j + 1] != ":":
+                raise YAMLError(f"{where}: a flow mapping entry needs 'key: value'")
+            key = value
+            value, j = node(j + 1, ",[]{}")
+            j = skip(j)
+            if isinstance(key, (list, dict)):
+                raise YAMLError(f"{where}: a collection as a mapping key is not read")
+            pairs[key] = value
+        elif s[j:j + 1] == ":":
+            raise YAMLError(f"{where}: a mapping inside a flow sequence is not read")
+        else:
+            items.append(value)
+        if s[j:j + 1] == close:
+            return (pairs if close == "}" else items), j + 1
+        if s[j:j + 1] != ",":
+            raise YAMLError(f"{where}: expected ',' or {close!r} in a flow collection")
+        j = skip(j + 1)
+
+
+def _inline_value(s: str, where: str) -> Any:
+    """A value written on its key's or dash's line: a flow collection, a
+    quoted scalar or a plain scalar, then an optional comment."""
+    if s[:1] in ("[", "{"):
+        value, j = _flow(s, 0, where)
+        _comment_or_end(s, j, where)
+        return value
+    if s[:1] in ("'", '"'):
+        value, j = _quoted(s, 0, where)
+        _comment_or_end(s, j, where)
+        return value
+    _check_plain_start(s, where)
+    m = re.search(r"[ \t]#", s)
+    text = (s[:m.start()] if m else s).rstrip()
+    if re.search(r":(?:[ \t]|$)", text):
+        raise YAMLError(f"{where}: a mapping value is not allowed here")
+    return _resolve_plain(text, where)
+
+
+def _split_key(s: str, where: str) -> Optional[Tuple[Any, str]]:
+    """(key, the text after its colon) when the line holds 'key: ...', else
+    None."""
+    if s[:1] in ("'", '"'):
+        key, j = _quoted(s, 0, where)
+        rest = s[j:].lstrip(" \t")
+        if not rest.startswith(":"):
+            return None
+        if rest[1:2] not in ("", " ", "\t"):
+            raise YAMLError(f"{where}: expected ': ' after a quoted key")
+        return key, rest[1:].lstrip(" \t")
+    if s[:1] in ("[", "{"):
+        _, j = _flow(s, 0, where)
+        if s[j:].lstrip(" \t").startswith(":"):
+            raise YAMLError(f"{where}: a collection as a mapping key is not read")
+        return None
+    m = re.search(r"[ \t]#|:(?:[ \t]|$)", s)
+    if not m or m.group(0).endswith("#"):
+        return None
+    text = s[:m.start()].rstrip()
+    _check_plain_start(text, where)
+    return _resolve_plain(text, where), s[m.end():].lstrip(" \t")
+
+
+def load_yaml(text: str) -> Any:
+    """Read one YAML document, as `yaml.safe_load` would, for the subset that
+    config files use: block mappings and block sequences (nested, and '- - x'
+    on one line), flow collections on one line, comments, plain, single- and
+    double-quoted scalars, with plain scalars typed by YAML 1.1's rules.
+    Anything else (anchors, aliases, tags, block scalars, multi-line
+    scalars, several documents, dates) raises YAMLError naming the line."""
+    lines: List[List[Any]] = []          # [indent, content, line number]
+    started = False
+    for n, raw in enumerate(text.lstrip("﻿").split("\n"), 1):
+        raw = raw.rstrip("\r")
+        content = raw.lstrip(" ")
+        if content.startswith("\t") or ("\t" in raw[:len(raw) - len(content)]):
+            raise YAMLError(f"line {n}: a tab in the indentation")
+        if not content.strip() or content.startswith("#"):
+            continue
+        indent = len(raw) - len(content)
+        if indent == 0 and content.startswith(("---", "...")) and \
+                content[3:4] in ("", " ", "\t"):
+            if content.startswith("---") and not started and not content[3:].strip():
+                started = True
+                continue
+            raise YAMLError(f"line {n}: several documents, or a document marker, are not read")
+        if indent == 0 and content.startswith("%"):
+            raise YAMLError(f"line {n}: directives are not read")
+        started = True
+        lines.append([indent, content.rstrip(" \t"), n])
+    if not lines:
+        return None
+
+    def is_item(content: str) -> bool:
+        return content.startswith("-") and content[1:2] in ("", " ")
+
+    def node(i: int, indent: int) -> Tuple[Any, int]:
+        return (seq if is_item(lines[i][1]) else mapping)(i, indent)
+
+    def block_after(i: int, indent: int, allow_same_seq: bool) -> Tuple[Any, int]:
+        """The block that follows a line whose value is empty: more indented,
+        or a sequence at the same indent under a mapping key; else null."""
+        if i < len(lines):
+            ind, content, _ = lines[i]
+            if ind > indent or (allow_same_seq and ind == indent and is_item(content)):
+                return node(i, ind)
+        return None, i
+
+    def check_next(i: int, indent: int) -> None:
+        if i < len(lines) and lines[i][0] > indent:
+            raise YAMLError(f"line {lines[i][2]}: unexpected indentation")
+
+    def seq(i: int, indent: int) -> Tuple[list, int]:
+        out = []
+        while i < len(lines) and lines[i][0] == indent and is_item(lines[i][1]):
+            _, content, n = lines[i]
+            rest = content[1:]
+            body = rest.lstrip(" ")
+            if not body or body.startswith("#"):
+                value, i = block_after(i + 1, indent, False)
+            else:
+                # the item's own line, read as if it began at the item's column
+                lines[i] = [indent + 1 + len(rest) - len(body), body, n]
+                if is_item(body) or _split_key(body, f"line {n}") is not None:
+                    value, i = node(i, lines[i][0])
+                else:
+                    value = _inline_value(body, f"line {n}")
+                    i += 1
+                    check_next(i, indent)
+            out.append(value)
+        return out, i
+
+    def mapping(i: int, indent: int) -> Tuple[dict, int]:
+        out: Dict[Any, Any] = {}
+        while i < len(lines) and lines[i][0] == indent and not is_item(lines[i][1]):
+            _, content, n = lines[i]
+            where = f"line {n}"
+            kv = _split_key(content, where)
+            if kv is None:
+                raise YAMLError(f"{where}: expected 'key: value', got {content!r}")
+            key, rest = kv
+            if not rest or rest.startswith("#"):
+                value, i = block_after(i + 1, indent, True)
+            else:
+                value = _inline_value(rest, where)
+                i += 1
+                check_next(i, indent)
+            out[key] = value
+        return out, i
+
+    value, i = node(0, lines[0][0])
+    if i < len(lines):
+        raise YAMLError(f"line {lines[i][2]}: bad indentation")
+    return value
+
+
+def read_yaml(path: str) -> Any:
+    """`load_yaml` of a file."""
+    with open(path, "r", encoding="utf-8") as f:
+        return load_yaml(f.read())

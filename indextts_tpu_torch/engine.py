@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import Config
+from indextts_tpu_torch.config import Config, read_yaml
 from indextts_tpu_torch.io import checkpoint, from_jax
 from indextts_tpu_torch.models import bigvgan as bigvgan_model
 from indextts_tpu_torch.models import unified_voice as uv
@@ -282,10 +282,7 @@ class IndexTTS:
         file_cfg: Dict[str, Any] = {}
         inf_path = os.path.join(model_dir, "config_inference.yaml")
         if os.path.exists(inf_path):
-            import yaml
-
-            with open(inf_path) as f:
-                file_cfg = (yaml.safe_load(f) or {}).get("inference") or {}
+            file_cfg = (read_yaml(inf_path) or {}).get("inference") or {}
         base = {"gpt": self.cfg.inference.gpt, "vocoder": self.cfg.inference.vocoder,
                 "cfg_scale": self.cfg.inference.cfg_scale,
                 "kv_cache": self.cfg.inference.kv_cache,

@@ -17,7 +17,9 @@ The input is a float tree of torch tensors on any device (or numpy arrays).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import json
+import os
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -224,6 +226,36 @@ def save_gpt_pth(path: str, params: Dict[str, Any], cfg: GPTConfig,
         ckpt["speaker_mels"] = {str(k): _np(v) for k, v in extras["speaker_mels"].items()}
     torch.save(ckpt, path)
     return path
+
+
+def speaker_extras(data_path: str, speakers: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """Each speaker's medoid condition and vocoder mel from an extraction
+    output directory, as the reference's fine-tuned .pth carries them
+    (utils/checkpoint.py:42-62): `save_gpt_pth`'s extras.  `speakers`
+    defaults to speaker_info.json's, else the directory's subdirectories."""
+    if speakers is None:
+        info = os.path.join(data_path, "speaker_info.json")
+        if os.path.exists(info):
+            with open(info, "r", encoding="utf-8") as f:
+                speakers = [it["speaker"] for it in json.load(f) if "speaker" in it]
+        else:
+            speakers = [d for d in sorted(os.listdir(data_path))
+                        if os.path.isdir(os.path.join(data_path, d))]
+    extras: Dict[str, Any] = {}
+    conds, mels = {}, {}
+    for sp in speakers:
+        cpath = os.path.join(data_path, sp, "medoid_condition.npy")
+        mpath = os.path.join(data_path, sp, "medoid_mel.npy")
+        if os.path.exists(cpath):
+            conds[sp] = np.load(cpath)
+        if os.path.exists(mpath):
+            mels[sp] = np.load(mpath)
+    if conds:
+        extras["speaker_conditions"] = conds
+        extras["speakers"] = sorted(conds)
+    if mels:
+        extras["speaker_mels"] = mels
+    return extras
 
 
 # ---------------------------------------------------------------------------

@@ -153,25 +153,10 @@ class Trainer:
         """Each speaker's medoid condition and vocoder mel from the extraction
         output, as the reference's finetuned .pth carries them
         (utils/checkpoint.py:42-62)."""
-        if self._speaker_extras_cache is not None:
-            return self._speaker_extras_cache
-        extras: Dict[str, Any] = {}
-        data_path = self.train_ds.data_path
-        conds, mels = {}, {}
-        for sp in sorted(self.train_ds.by_speaker):
-            cpath = os.path.join(data_path, sp, "medoid_condition.npy")
-            mpath = os.path.join(data_path, sp, "medoid_mel.npy")
-            if os.path.exists(cpath):
-                conds[sp] = np.load(cpath)
-            if os.path.exists(mpath):
-                mels[sp] = np.load(mpath)
-        if conds:
-            extras["speaker_conditions"] = conds
-            extras["speakers"] = sorted(conds)
-        if mels:
-            extras["speaker_mels"] = mels
-        self._speaker_extras_cache = extras
-        return extras
+        if self._speaker_extras_cache is None:
+            self._speaker_extras_cache = export.speaker_extras(
+                self.train_ds.data_path, sorted(self.train_ds.by_speaker))
+        return self._speaker_extras_cache
 
     def try_resume(self) -> None:
         """Resume from the newest checkpoint_epoch_* (run_train.sh:100-123)."""
