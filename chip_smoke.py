@@ -115,9 +115,11 @@
    forward and K1b (`csrc/anti_alias_backward.cu`) backward:
    - K1b against its plain version in fp32 at the six stage shapes of a
      training step (batch 8, 24 codes; timed, graph replay and eager, with
-     the plain backward) and at T in {1, 2, 3, 5, 7, 257} with logscale on
-     and off; two runs bit-equal; a planted fault (grad_alpha without its
-     logscale factor) rejected; a bf16 input refused;
+     the plain backward and the plan the wrapper chose) and at each T of
+     K1B_EDGE_TS (short, odd and ragged rows) with logscale on and off,
+     under the card's plan and two forced ones (3 steps a segment; the
+     scalar path); two runs bit-equal; a planted fault (grad_alpha without
+     its logscale factor) rejected; a bf16 input refused;
    - one GAN step on the small fp32 generator on the card and on the CPU:
      every gradient leaf before the optimizer, conv_pre's and the latent's
      non-zero and equal (fault C6), then the whole step's metrics and
@@ -213,7 +215,8 @@ EARLIER_MS = {"fused_decode_trunk_flat[bf16]": 1.48, "fused_decode_trunk_flat[in
               "fused_decode_trunk_flat[int4]": 2.09, "fused_decode_trunk_flat[fp8_cache]": 1.56,
               "fused_pool_step[bf16] S=8": 4.28, "fused_pool_step[bf16] S=64": 11.38,
               "fused_pool_step[int8_fp8cache] S=8": 4.38,
-              "fused_pool_step[int8_fp8cache] S=64": 11.67}
+              "fused_pool_step[int8_fp8cache] S=64": 11.67,
+              "anti_alias_activation_backward": 5.804}   # K1b's first design, a training step
 SMALL_MODEL = {             # 2 layers, width 128, head width 64; BigVGAN at 64 channels
     "gpt": {"model_dim": 128, "layers": 2, "heads": 2, "max_mel_tokens": 64,
             "max_text_tokens": 120,
@@ -3183,7 +3186,10 @@ def extract_and_dvae(torch, out_dir: str) -> str:
 
 VOC_CODES = 24              # VocoderTrainConfig's segment: 24 codes, 24,576 samples
 K1B_FLOPS_PER_ELEM = 92     # 36 FMAs (u, Down^T, Up^T) as flops, 20 for the two snakes' derivatives
-K1B_EDGE_TS = (1, 2, 3, 5, 7, 257)
+# T < 6: both edges' clamps overlap; 95, 97, 385, 6143: the scalar path (T % 4 != 0); 95,
+# 97, 100: short rows, 8- and 16-lane segments with idle lanes; 385, 772, 6143: rows of
+# several 384-column chunks with a ragged final step (1, 4 and 383 columns)
+K1B_EDGE_TS = (1, 2, 3, 5, 7, 95, 97, 100, 257, 385, 772, 6143)
 K1B_TOL_X = 1e-5            # grad_x: max|diff| / max|plain|, fp32 (tap order, __sincosf)
 K1B_TOL_AB = 1e-4           # grad_alpha, grad_beta: sums over B x 2T terms in another order
 
@@ -3222,14 +3228,28 @@ def k1b_within(errs: dict) -> bool:
                                                errs["grad_beta"]) <= K1B_TOL_AB
 
 
-def kernel_checks_anti_alias_backward(torch, filters, k1b):
+def k1b_plan(B: int, C: int, T: int, logscale: bool = True) -> dict:
+    """The plan the K1b wrapper chose for a [B, C, T] call on card 0 (rows
+    16-byte aligned where T % 4 == 0), after that call."""
+    from indextts_tpu_torch.ops.cuda import anti_alias
+
+    plan = anti_alias.chosen_plan(B, C, T, T % 4 == 0, 0, logscale) or {}
+    return {k: plan[k] for k in ("seg_lanes", "vec", "multi_row", "steps", "pieces", "blocks")
+            if k in plan}
+
+
+def kernel_checks_anti_alias_backward(torch, filters, anti_alias):
     """K1b against its plain version (ops/filters.anti_aliased_activation_
     backward) in fp32 at the six stage shapes of a vocoder training step
-    (batch 8, 24 codes; timed) and at T in {1, 2, 3, 5, 7, 257} (B = 2,
-    C = 3, logscale on and off); two runs bit-equal at the largest shape; a
-    planted fault (the plain grad_alpha without its logscale factor) that
-    the check must reject; and a bf16 input refused.  Returns its
-    kernels-line entry: times summed over one training step's 109 calls."""
+    (batch 8, 24 codes; timed) and at each T of K1B_EDGE_TS (B = 2, C = 3,
+    logscale on and off) under the card's plan and two forced ones: 3 steps
+    a segment on one SM's worth of segments (long-lived segments, a ragged
+    last piece) and the scalar path on an aligned row; two runs bit-equal at
+    the largest shape; a planted fault (the plain grad_alpha without its
+    logscale factor) that the check must reject; and a bf16 input refused.
+    Returns its kernels-line entry: times summed over one training step's
+    109 calls."""
+    k1b, backward_plan = anti_alias.anti_alias_activation_backward, anti_alias.backward_plan
     g = torch.Generator(device="cuda").manual_seed(31)
     shapes, counts = vocoder_stage_shapes(8, VOC_CODES)
     worst = 0.0
@@ -3247,8 +3267,9 @@ def kernel_checks_anti_alias_backward(torch, filters, k1b):
              "plain_ms": cuda_ms(filters.anti_aliased_activation_backward, sets[:2], 3,
                                  graph=False),
              "bound_ms": max(bb, bo), "bound_by": "bytes" if bb >= bo else "operations"}
+        plan = k1b_plan(B, C, T)
         per_shape[f"B={B} C={C} T={T}"] = {**t, "share_of_bound": t["bound_ms"] / t["ms"],
-                                           "calls_per_step": counts[(B, C, T)]}
+                                           "calls_per_step": counts[(B, C, T)], "plan": plan}
         worst = max(worst, max(errs.values()))
         emit({"check": f"K1b anti_alias_backward fp32 B={B} C={C} T={T}", **errs,
               "tol_grad_x": K1B_TOL_X, "tol_grad_alpha_beta": K1B_TOL_AB,
@@ -3259,12 +3280,18 @@ def kernel_checks_anti_alias_backward(torch, filters, k1b):
     for logscale in (True, False):
         for T in K1B_EDGE_TS:
             x, a, b, gy = k1b_inputs(torch, g, 2, 3, T, logscale)
-            errs = k1b_errors(k1b(x, a, b, gy, logscale),
-                              filters.anti_aliased_activation_backward(x, a, b, gy, logscale))
-            worst = max(worst, max(errs.values()))
+            ref = filters.anti_aliased_activation_backward(x, a, b, gy, logscale)
+            plans = {"card": None,
+                     "steps3": backward_plan(2, 3, T, T % 4 == 0, 1, 1, steps=3),
+                     "scalar": backward_plan(2, 3, T, False, 1, 1, steps=2)}
+            errs = {name: k1b_errors(anti_alias._backward(x, a, b, gy, logscale, plan), ref)
+                    for name, plan in plans.items()}
+            within = all(k1b_within(e) for e in errs.values())
+            worst = max([worst] + [max(e.values()) for e in errs.values()])
             emit({"check": f"K1b anti_alias_backward fp32 B=2 C=3 T={T} logscale={logscale}",
-                  **errs, "ok": k1b_within(errs)})
-            if not k1b_within(errs):
+                  **errs["card"], "forced_plans": {n: errs[n] for n in ("steps3", "scalar")},
+                  "plan": k1b_plan(2, 3, T, logscale), "ok": within})
+            if not within:
                 raise SmokeFailure(f"K1b at T={T} logscale={logscale}: {errs}")
     # two runs bit-equal; a planted fault rejected; bf16 refused
     x, a, b, gy = k1b_inputs(torch, g, *shapes[-1])
@@ -3687,8 +3714,7 @@ def vocoder_finetune(torch, engine_mod, kernels, prompt: str, root: str) -> tupl
     from indextts_tpu_torch.ops.cuda import anti_alias
 
     t0 = time.perf_counter()
-    entry = kernel_checks_anti_alias_backward(torch, filters,
-                                              anti_alias.anti_alias_activation_backward)
+    entry = kernel_checks_anti_alias_backward(torch, filters, anti_alias)
     vocoder_small_agreement(torch)
     n_k1, n_k1b = vocoder_train(torch, engine_mod, kernels, prompt, root)
     emit({"phase": "vocoder fine-tuning slice", "s": time.perf_counter() - t0,

@@ -33,9 +33,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "anti_alias_activation": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
     "anti_alias_plan": (_I, [_I, _I, _I, _I, _I, _P]),
-    # x, alpha, beta, g, gx, grad_alpha, grad_beta, scratch, B, C, T, logscale, taps, stream
-    "anti_alias_activation_backward": (_I, [_P] * 8 + [_I] * 4 + [_P, _P]),
-    "anti_alias_backward_scratch_floats": (ctypes.c_longlong, [_I, _I, _I]),
+    # x, alpha, beta, g, gx, grad_ab (and the partials), the launch's shape and plan, stream
+    "anti_alias_backward_launch": (_I, [_P] * 8),
+    "anti_alias_backward_resident": (_I, [_I, _I, _I]),
+    "anti_alias_backward_layout": (_I, [_P]),
     # forms, hidden, out, k, v, mask, pos, L, D, H, T; ln1; qkv (w, s, groups,
     # bias); proj; ln2; fc; mproj; scratch, stream
     "decode_trunk_step": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]

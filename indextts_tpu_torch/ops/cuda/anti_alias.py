@@ -6,9 +6,10 @@ function.
 
 K1 reads x once and writes y once; the 2x-rate signal stays in registers, a
 thread's window of it shared with its neighbours by warp shuffles.  K1b
-recomputes that signal from x in shared memory and writes grad_x and the
-per-channel grad_alpha, grad_beta (design notes, and what bounds each, in
-the sources).  The plain versions are `ops.filters.anti_aliased_activation`
+recomputes that signal from x the same way and writes grad_x and the
+per-channel grad_alpha, grad_beta; its work split (`backward_plan`) is
+chosen here and passed to it (design notes, and what bounds each, in the
+sources).  The plain versions are `ops.filters.anti_aliased_activation`
 and `ops.filters.anti_aliased_activation_backward`; the wrappers take them
 only for tensors on the CPU.  For a CUDA tensor they launch the kernel or
 raise.
@@ -94,9 +95,16 @@ def anti_alias_activation_backward(x: torch.Tensor, alpha: torch.Tensor, beta: t
     """The gradient of `fused_anti_alias_activation` for x, grad_y [B, C, T]
     and alpha, beta [C]: (grad_x [B, C, T], grad_alpha [C], grad_beta [C]).
     On a CUDA tensor, fp32 only (K1b); two calls give bit-equal results."""
-    if x.device.type == "cpu":
-        return filters.anti_aliased_activation_backward(x, alpha, beta, grad_y, logscale)
-    if x.device.type != "cuda":
+    return _backward(x, alpha, beta, grad_y, logscale, None)
+
+
+def _backward(x, alpha, beta, grad_y, logscale, plan):
+    """`anti_alias_activation_backward`; a `plan` from `backward_plan`
+    replaces the launch chosen for the card (checks of the work split) and
+    must match x's shape and alignment."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return filters.anti_aliased_activation_backward(x, alpha, beta, grad_y, logscale)
         raise ValueError(f"anti_alias_activation_backward: unsupported device {x.device}")
     if x.dim() != 3 or x.dtype != torch.float32 or grad_y.dtype != torch.float32:
         raise ValueError(f"anti_alias_activation_backward takes fp32 [B, C, T] x and grad_y, "
@@ -109,26 +117,149 @@ def anti_alias_activation_backward(x: torch.Tensor, alpha: torch.Tensor, beta: t
     B, C, T = x.shape
     if B == 0 or T == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
-    alpha = alpha.float().contiguous()
-    beta = beta.float().contiguous()
+    if alpha.dtype != torch.float32 or not alpha.is_contiguous():
+        alpha = alpha.float().contiguous()
+    if beta.dtype != torch.float32 or not beta.is_contiguous():
+        beta = beta.float().contiguous()
     if alpha.shape != (C,) or beta.shape != (C,) or alpha.device != x.device:
         raise ValueError("alpha/beta must be [C] tensors on x's device")
-    lib = _build.load()
+    lib = _k1b_library()
     grad_x = torch.empty_like(x)
-    grad_alpha = torch.empty(C, dtype=torch.float32, device=x.device)
-    grad_beta = torch.empty(C, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(lib.anti_alias_backward_scratch_floats(B, C, T),
-                          dtype=torch.float32, device=x.device)
-    rc = lib.anti_alias_activation_backward(
+    vec = T % 4 == 0 and (x.data_ptr() | grad_y.data_ptr() | grad_x.data_ptr()) % 16 == 0
+    dev = x.get_device()
+    if plan is None:
+        key = (B, C, T, vec, dev, bool(logscale))
+        launch = _K1B_LAUNCHES.get(key)
+        if launch is None:
+            launch = _K1B_LAUNCHES[key] = _Launch.of(backward_plan(
+                B, C, T, vec, lambda *variant: _resident(lib, dev, *variant),
+                torch.cuda.get_device_properties(dev).multi_processor_count), logscale)
+    else:
+        want = backward_plan(B, C, T, plan["vec"], plan["blocks_per_sm"], plan["sms"],
+                             steps=plan["steps"], layout=_K1B_LAYOUT)
+        if plan["vec"] and not vec or any(plan[k] != want[k] for k in want if k != "vec"):
+            raise ValueError(f"plan {plan} does not fit {tuple(x.shape)} (16-byte path: {vec})")
+        launch = _Launch.of(plan, logscale)
+    # grad_alpha, grad_beta and the kernel's per-(row, piece) partials in one buffer
+    partials = 2 * launch.plan["partials"]
+    out = x.new_empty(2 * C + partials)
+    rc = lib.anti_alias_backward_launch(
         x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), grad_y.data_ptr(), grad_x.data_ptr(),
-        grad_alpha.data_ptr(), grad_beta.data_ptr(), scratch.data_ptr(), B, C, T,
-        int(logscale), _TAPS, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "anti_alias_activation_backward")
+        out.data_ptr(), launch.address, torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(lib, rc, "anti_alias_backward_launch")
     anti_alias_activation_backward.launches += 1
+    grad_alpha, grad_beta, _ = out.split_with_sizes([C, C, partials])
     return grad_x, grad_alpha, grad_beta
 
 
 anti_alias_activation_backward.launches = 0
+
+_K1B_LAUNCHES: dict = {}   # (B, C, T, vec, device, logscale) -> _Launch
+_K1B_RESIDENT: dict = {}
+_K1B_LIB = None
+_K1B_LAYOUT = None         # the library's (columns a thread, threads a block)
+
+
+class _Launch(ctypes.Structure):
+    """One K1b call's shape and plan as the kernel library reads them
+    (csrc/anti_alias_backward.cu::BackwardLaunch), built once per shape."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "B", "C", "T", "logscale", "seg_lanes", "vec", "multi_row", "steps", "pieces",
+        "segments", "blocks")] + [("taps", ctypes.c_float * 12)]
+
+    @classmethod
+    def of(cls, plan: dict, logscale: bool) -> "_Launch":
+        launch = cls(plan["B"], plan["C"], plan["T"], int(logscale), plan["seg_lanes"],
+                     int(plan["vec"]), int(plan["multi_row"]), plan["steps"], plan["pieces"],
+                     plan["segments"], plan["blocks"], _TAPS)
+        launch.plan = plan
+        launch.address = ctypes.addressof(launch)
+        return launch
+
+
+def chosen_plan(B: int, C: int, T: int, vec: bool = True, device: int = 0,
+                logscale: bool = True) -> dict | None:
+    """The plan the K1b wrapper chose for such a call (it plans at a shape's
+    first call on a device), or None before that call."""
+    launch = _K1B_LAUNCHES.get((B, C, T, vec, device, logscale))
+    return None if launch is None else launch.plan
+
+
+def _k1b_library():
+    """The kernel library and its K1b layout, read once.  Clearing
+    `_K1B_LIB` and `_K1B_LAUNCHES` loads it again."""
+    global _K1B_LIB, _K1B_LAYOUT
+    if _K1B_LIB is None:
+        lib = _build.load()
+        out = (ctypes.c_longlong * 2)()
+        lib.anti_alias_backward_layout(out)
+        _K1B_LIB, _K1B_LAYOUT = lib, tuple(out)
+    return _K1B_LIB
+
+
+def _resident(lib, dev: int, seg_lanes: int, vec: bool, multi_row: bool) -> int:
+    key = (id(lib), dev, seg_lanes, vec, multi_row)
+    if key not in _K1B_RESIDENT:
+        with torch.cuda.device(dev):
+            n = lib.anti_alias_backward_resident(seg_lanes, int(vec), int(multi_row))
+        if n <= 0:
+            _build.check(lib, -n, "anti_alias_backward_resident")
+            raise RuntimeError(f"K1b ({seg_lanes} lanes a segment) fits no block on an SM")
+        _K1B_RESIDENT[key] = n
+    return _K1B_RESIDENT[key]
+
+
+def backward_plan(B: int, C: int, T: int, vec: bool, resident, sms: int,
+                  steps: int | None = None, layout: tuple | None = None) -> dict:
+    """K1b's launch for a [B, C, T] input (`vec`: the 16-byte path), on a
+    card of `sms` SMs that holds `resident(seg_lanes, vec, multi_row)` blocks
+    of that kernel variant per SM (or `resident` blocks, an int).  `layout`:
+    the kernel's (columns a thread, threads a block), the library's unless
+    given.
+
+    A segment of `seg_lanes` lanes (8, 16 or 32: the fewest from 8 whose
+    column slots span a row, else 32) covers `span` = columns x seg_lanes
+    consecutive columns of a row a step.  Where a row is one such chunk
+    (`multi_row`), a segment takes `steps` consecutive rows; else it takes
+    `steps` consecutive chunks of one row (a piece; `pieces` a row).  Unless
+    given, `steps` is the fewest that keep the grid within one wave of the
+    card's resident segments (all of a row's chunks where none do): on the
+    card, long-lived segments in one wave beat more, shorter waves at every
+    stage shape of a training step, the first two included.  Each (row,
+    piece) writes one of `partials` partials, index row x pieces + piece."""
+    if layout is None:
+        _k1b_library()
+        layout = _K1B_LAYOUT
+    cols, threads = layout
+    rows = B * C
+    lanes = 8
+    while lanes < 32 and lanes * cols < T:
+        lanes *= 2
+    span = lanes * cols
+    chunks = -(-T // span)
+    multi_row = chunks == 1
+    per_block = threads // lanes
+    per_sm = resident(lanes, vec, multi_row) if callable(resident) else resident
+    cap = max(1, sms * per_sm * per_block)
+    units = rows if multi_row else chunks
+
+    def segments(s):
+        return -(-rows // s) if multi_row else rows * -(-chunks // s)
+
+    if steps is None:
+        steps = -(-rows // cap) if multi_row else 1
+        while steps < units and segments(steps) > cap:
+            steps += 1
+    steps = max(1, min(steps, units))
+    n_seg = segments(steps)
+    pieces = 1 if multi_row else -(-chunks // steps)
+    return {"seg_lanes": lanes, "vec": bool(vec), "multi_row": multi_row, "steps": steps,
+            "pieces": pieces, "segments": n_seg, "blocks": -(-n_seg // per_block),
+            "span": span, "chunks": chunks, "rows": rows, "B": B, "C": C, "T": T,
+            "partials": rows * pieces, "sms": sms, "blocks_per_sm": per_sm,
+            "layout": (cols, threads)}
+
 
 _PLAN_KEYS = ("vec16", "outputs_per_thread", "threads", "block_step", "steps", "blocks")
 

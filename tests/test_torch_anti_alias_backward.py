@@ -5,6 +5,9 @@ forward (and gradcheck in fp64); the autograd function of
 ops/cuda/anti_alias.py (K1 forward, K1b backward), with its launchers
 counted, at the op and through a tiny BigVGAN."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -191,3 +194,120 @@ def test_bigvgan_gradient_goes_through_every_activation(monkeypatch):
     for g, r in zip(got, ref):
         assert float(r.abs().max()) > 0
         assert _rel_err(g.numpy(), r.numpy()) < 1e-5
+
+
+# K1b's work split (ops/cuda/anti_alias.backward_plan; the kernel's index
+# arithmetic restated in _slots and _sum_order): the six stage shapes of a
+# vocoder training step and short, odd and ragged rows; on a card of 132
+# SMs holding 8 blocks each, on one SM holding one (long-lived segments,
+# ragged last pieces) and with 3 steps forced.  The layout (columns a
+# thread, threads a block) is read from the kernel's source.
+_K1B_SOURCE = (Path(anti_alias.__file__).parents[2] / "csrc"
+               / "anti_alias_backward.cu").read_text()
+LAYOUT = tuple(int(re.search(rf"constexpr int {name} = (\d+);", _K1B_SOURCE).group(1))
+               for name in ("kV", "kThreads"))
+SPLIT_SHAPES = ([(8, 768, 96), (8, 384, 384), (8, 192, 1536), (8, 96, 6144), (8, 48, 12288),
+                 (8, 24, 24576)] + [(2, 3, T) for T in (1, 2, 3, 5, 7, 95, 96, 257, 6143)])
+SPLIT_CARDS = {"h100": dict(sms=132, resident=8), "one_sm": dict(sms=1, resident=1),
+               "steps3": dict(sms=132, resident=8, steps=3)}
+
+
+def _slots(plan: dict) -> dict:
+    """The work split that K1b runs for `plan`, by the kernel's own index
+    arithmetic: for every (segment, step) that runs, its `row` and `first`
+    column (its lanes own the column slots from there, clipped to the
+    row) and `into`, the partial its terms go to; and `partial`, the index
+    of every partial the kernel writes, in the order of (segment, step)."""
+    seg = np.arange(plan["segments"])[:, None]
+    t = np.arange(plan["steps"])[None, :]
+    steps, pieces = plan["steps"], plan["pieces"]
+    if plan["multi_row"]:
+        row = seg * steps + t
+        chunk = np.zeros_like(row)
+        runs = row < plan["rows"]
+        flush, index = runs, row
+    else:
+        row = np.broadcast_to(seg // pieces, (plan["segments"], steps))
+        chunk0 = (seg % pieces) * steps
+        chunk = chunk0 + t
+        runs = chunk < plan["chunks"]
+        n_steps = np.minimum(steps, plan["chunks"] - chunk0)
+        flush = runs & (t == n_steps - 1)
+        index = np.broadcast_to(seg, row.shape)
+    return {"row": row[runs], "first": chunk[runs] * plan["span"], "into": index[runs],
+            "partial": index[flush]}
+
+
+def _sum_order(plan: dict):
+    """The partial indices that K1b's second kernel adds for each channel,
+    in its order: [C, B x pieces] (rows (b, ch) for b < B, pieces in order)."""
+    B, C, pieces = plan["B"], plan["C"], plan["pieces"]
+    b = np.arange(B)[:, None]
+    p = np.arange(pieces)[None, :]
+    ch = np.arange(C)[:, None, None]
+    return ((b[None] * C + ch) * pieces + p[None]).reshape(C, B * pieces)
+
+
+@pytest.mark.parametrize("card", list(SPLIT_CARDS))
+@pytest.mark.parametrize("B,C,T", SPLIT_SHAPES)
+def test_backward_work_split(B, C, T, card):
+    """Every column of every row is owned by exactly one thread-slot
+    (segment, step, lane); every (row, piece) partial is written exactly
+    once; the second kernel sums each channel's partials, and only them, in
+    one fixed order; summed so, per-column values give each channel's sum."""
+    plan = anti_alias.backward_plan(B, C, T, T % 4 == 0, **SPLIT_CARDS[card], layout=LAYOUT)
+    rows, lanes, cols = B * C, plan["seg_lanes"], LAYOUT[0]
+    assert lanes in (8, 16, 32) and plan["span"] == lanes * cols
+    assert plan["multi_row"] == (T <= plan["span"]) and (lanes == 32 or plan["multi_row"])
+    assert plan["blocks"] * LAYOUT[1] // lanes >= plan["segments"]
+    slots = _slots(plan)
+    assert ((slots["row"] >= 0) & (slots["row"] < rows)).all()
+    # each (segment, step, lane) owns the 12 columns from first + 12 lane that lie in
+    # the row: sorted by (row, start), the owned runs tile every row exactly once
+    start = (slots["first"][:, None] + cols * np.arange(lanes)[None, :]).ravel()
+    row = np.repeat(slots["row"], lanes)
+    into = np.repeat(slots["into"], lanes)
+    keep = start < T
+    start, row, into = start[keep], row[keep], into[keep]
+    end = np.minimum(start + cols, T)
+    by = np.lexsort((start, row))
+    start, row, into, end = start[by], row[by], into[by], end[by]
+    first_of_row = np.r_[True, row[1:] != row[:-1]]
+    assert np.array_equal(row[first_of_row], np.arange(rows))
+    assert (start[first_of_row] == 0).all()
+    assert (start[~first_of_row] == end[np.flatnonzero(~first_of_row) - 1]).all()
+    assert (end[np.r_[first_of_row[1:], True]] == T).all()
+    written = np.bincount(slots["partial"], minlength=plan["partials"])
+    assert written.shape == (plan["partials"],) and (written == 1).all()
+    order = _sum_order(plan)
+    assert order.shape == (C, B * plan["pieces"])
+    assert np.array_equal(np.sort(order.ravel()), np.arange(plan["partials"]))
+    assert ((order // plan["pieces"]) % C == np.arange(C)[:, None]).all()
+    # each slot's terms go to its own row's partials
+    assert (slots["into"] // plan["pieces"] == slots["row"]).all()
+    # a value w[r] per column of row r, summed through the partials
+    w = np.random.default_rng(T).standard_normal(rows)
+    partial = np.zeros(plan["partials"])
+    np.add.at(partial, into, (end - start) * w[row])
+    got = partial[order].sum(axis=1)
+    want = T * w.reshape(B, C).sum(axis=0)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+def test_backward_plan_fills_the_card():
+    """On 132 SMs holding 8 blocks each, the six stage shapes: rows of 96
+    columns run four to a warp (8-lane segments); every grid is one wave
+    of resident segments, with the fewest steps a segment that allow it,
+    so long rows take several steps a segment."""
+    for B, C, T in SPLIT_SHAPES[:6]:
+        p = anti_alias.backward_plan(B, C, T, True, 8, 132, layout=LAYOUT)
+        per_block = LAYOUT[1] // p["seg_lanes"]
+        cap = 132 * 8 * per_block
+        assert p["segments"] <= cap and p["blocks"] <= 132 * 8
+        if p["steps"] > 1:
+            fewer = anti_alias.backward_plan(B, C, T, True, 8, 132, steps=p["steps"] - 1,
+                                             layout=LAYOUT)
+            assert fewer["segments"] > cap
+        assert p["multi_row"] == (T <= 384)
+        assert p["seg_lanes"] == (8 if T == 96 else 32)
+    assert anti_alias.backward_plan(8, 24, 24576, True, 8, 132, layout=LAYOUT)["steps"] > 1

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of the port's kernel sources on one NVIDIA GPU.
 
-    python3 tools/trunk_ab.py [--k2 | --k1] base=indextts_tpu_torch/csrc other=path/to/csrc ...
+    python3 tools/trunk_ab.py [--k2 | --k1 | --k1b] base=indextts_tpu_torch/csrc other=path/to/csrc ...
 
 Each NAME=DIR is a copy of `indextts_tpu_torch/csrc/` (for example one
 unpacked from another commit with `git archive`).  Every tree is built by
@@ -24,6 +24,18 @@ resource use (`cuobjdump -sass` and `-res-usage` on the tree's library),
 a profile of one flagship vocode on that tree (chip_smoke.py's
 `vocode_profile`), and the last stage's shape at 1, 4 and 16 rows of batch
 with the SM clock read while it runs.
+
+With `--k1b`: K1's backward (`anti_alias_activation_backward`, fp32) at
+the six stage shapes of one vocoder training step (batch 8, 24 codes;
+chip_smoke.py's `vocoder_stage_shapes`); prints, per tree, each shape's ms
+and share of its bound, the ms a step (109 calls) as graph replays and as
+eager calls, the largest max|kernel - plain| / max|plain| of grad_x,
+grad_alpha and grad_beta, the static SASS counts and resource use of its
+kernels, each kernel's device time at each shape (torch.profiler), and,
+for a tree with the current interface, each shape's ms under the plan the
+wrapper chooses and under other steps a segment.  A tree with K1b's first
+interface (`anti_alias_activation_backward` with a scratch buffer) is
+called through a copy of that interface's wrapper.
 """
 
 
@@ -67,6 +79,8 @@ def main(argv) -> int:
     use = lambda lib: setattr(_build, "load", lambda: lib)  # noqa: E731
     if "--k1" in argv:
         return k1_ab(torch, cs, libs, order, use)
+    if "--k1b" in argv:
+        return k1b_ab(torch, cs, libs, order)
     L, D, H, T, pos = 24, 1280, 20, 768, 700
     params, k0, v0, hidden = cs.decode_inputs(torch, gpt2, L, D, H, T, "cuda", torch.bfloat16)
     mask, _ = cs.decode_masks(torch, T, pos, False, "cuda")
@@ -133,10 +147,10 @@ def sass_class(op: str) -> str:
     return "uniform" if op.startswith("U") else "other"
 
 
-def sass_counts(lib_path) -> dict:
-    """Static SASS instruction counts of each K1 kernel in a built library,
-    by class, NOPs left out (cuobjdump -sass), and the kernels' resource use
-    (-res-usage)."""
+def sass_counts(lib_path, match: str = "anti_alias") -> dict:
+    """Static SASS instruction counts of each kernel whose name holds
+    `match` (K1's by default) in a built library, by class, NOPs left out
+    (cuobjdump -sass), and the kernels' resource use (-res-usage)."""
     import re
     import subprocess
 
@@ -149,7 +163,7 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
-            fn = head.group(1) if "anti_alias" in head.group(1) else None
+            fn = head.group(1) if match in head.group(1) else None
             if fn:
                 counts[fn] = {"total": 0}
             continue
@@ -162,7 +176,7 @@ def sass_counts(lib_path) -> dict:
     usage = {}
     lines = res.splitlines()
     for i, line in enumerate(lines):
-        if "Function" in line and "anti_alias" in line and i + 1 < len(lines):
+        if "Function" in line and match in line and i + 1 < len(lines):
             usage[line.split("Function")[1].strip(" :")] = lines[i + 1].strip()
     return {"sass": counts, "res_usage": usage}
 
@@ -208,6 +222,127 @@ def k1_ab(torch, cs, libs, order, use) -> int:
         cs.vocode_profile(torch, name)
         k1_scaling(torch, cs, k1, name, stages[-1])
     return 0
+
+
+def scratch_k1b(torch, lib):
+    """K1b through a copy of its first design's wrapper, for a tree with that
+    interface:
+    grad_x, grad_alpha, grad_beta and a scratch buffer allocated a call."""
+    import ctypes
+
+    from indextts_tpu_torch.ops.cuda import _build
+    from indextts_tpu_torch.ops.cuda.anti_alias import _TAPS
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.anti_alias_activation_backward.argtypes = [P] * 8 + [I] * 4 + [P, P]
+    lib.anti_alias_activation_backward.restype = I
+    lib.anti_alias_backward_scratch_floats.argtypes = [I, I, I]
+    lib.anti_alias_backward_scratch_floats.restype = ctypes.c_longlong
+
+    def k1b(x, alpha, beta, grad_y, logscale=True):
+        B, C, T = x.shape
+        alpha = alpha.float().contiguous()
+        beta = beta.float().contiguous()
+        grad_x = torch.empty_like(x)
+        grad_alpha = torch.empty(C, dtype=torch.float32, device=x.device)
+        grad_beta = torch.empty(C, dtype=torch.float32, device=x.device)
+        scratch = torch.empty(lib.anti_alias_backward_scratch_floats(B, C, T),
+                              dtype=torch.float32, device=x.device)
+        rc = lib.anti_alias_activation_backward(
+            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), grad_y.data_ptr(),
+            grad_x.data_ptr(), grad_alpha.data_ptr(), grad_beta.data_ptr(), scratch.data_ptr(),
+            B, C, T, int(logscale), _TAPS, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, rc, "anti_alias_activation_backward")
+        return grad_x, grad_alpha, grad_beta
+
+    return k1b
+
+
+def k1b_ab(torch, cs, libs, order) -> int:
+    """K1b of each tree at the six stage shapes of a vocoder training step,
+    in turns, as graph replays and eager calls."""
+    from indextts_tpu_torch.ops import filters
+    from indextts_tpu_torch.ops.cuda import _build, anti_alias
+
+    def use(lib):
+        if hasattr(lib, "anti_alias_backward_launch"):
+            _build.load = lambda: lib
+            anti_alias._K1B_LIB = None
+            anti_alias._K1B_LAUNCHES.clear()
+            return anti_alias.anti_alias_activation_backward
+        return scratch_k1b(torch, lib)
+
+    shapes, counts = cs.vocoder_stage_shapes(8, cs.VOC_CODES)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sets = {}
+    for B, C, T in shapes:
+        nbytes = 4 * B * C * T
+        n_sets = max(2, min(16, -(-int(100e6) // (2 * nbytes))))
+        sets[(B, C, T)] = [cs.k1b_inputs(torch, g, B, C, T) for _ in range(n_sets)]
+    refs = {s: filters.anti_aliased_activation_backward(*sets[s][0]) for s in shapes}
+    times, eager, errs = {}, {}, {}
+    for name in order:
+        k1b = use(libs[name])
+        for s in shapes:
+            errs[name] = max([errs.get(name, 0.0)]
+                             + list(cs.k1b_errors(k1b(*sets[s][0]), refs[s]).values()))
+            iters = max(20, len(sets[s]))
+            times.setdefault((name, s), []).append(cs.cuda_ms(k1b, sets[s], iters))
+            eager.setdefault((name, s), []).append(cs.cuda_ms(k1b, sets[s], iters, graph=False))
+    del sets, refs
+    torch.cuda.empty_cache()
+    bound = {s: (3 * 4 * s[0] * s[1] * s[2] + 16 * s[1]) / cs.HBM_BYTES_PER_S * 1e3
+             for s in shapes}
+    for name, lib in libs.items():
+        per = {f"B={B} C={C} T={T}": {"ms": [round(t, 5) for t in times[(name, (B, C, T))]],
+                                      "share_of_bound": round(bound[(B, C, T)]
+                                                              / min(times[(name, (B, C, T))]), 4)}
+               for B, C, T in shapes}
+        runs = len(times[(name, shapes[0])])
+        step = [sum(n * times[(name, s)][i] for s, n in counts.items()) for i in range(runs)]
+        step_eager = [sum(n * eager[(name, s)][i] for s, n in counts.items())
+                      for i in range(runs)]
+        print(f"{name} K1b per shape {per}", flush=True)
+        step_bound = sum(n * bound[s] for s, n in counts.items())
+        print(f"{name} K1b per training step ms {[round(t, 4) for t in step]} eager ms "
+              f"{[round(t, 4) for t in step_eager]} bound ms {step_bound:.4f} "
+              f"max_rel_err {errs[name]}", flush=True)
+        print(f"{name} K1b {sass_counts(lib._name, 'anti_alias_backward')}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for name in libs:   # each kernel's device time at each shape, one call under the profiler
+        k1b = use(libs[name])
+        for B, C, T in shapes:
+            args = cs.k1b_inputs(torch, g, B, C, T)
+            for _ in range(3):   # a trace that lost one of the call's two kernels is taken again
+                if cs.kernel_breakdown(torch, f"{name} K1b B={B} C={C} T={T}", k1b, args) >= 2:
+                    break
+        if hasattr(libs[name], "anti_alias_backward_launch"):
+            k1b_steps(torch, cs, anti_alias, name, shapes, g)
+    return 0
+
+
+def k1b_steps(torch, cs, anti_alias, name: str, shapes, g) -> None:
+    """Graph ms of K1b at each stage shape under the plan the wrapper
+    chooses and under forced steps a segment around it (the planner's
+    check)."""
+    k1b = anti_alias.anti_alias_activation_backward
+    for B, C, T in shapes:
+        nbytes = 4 * B * C * T
+        sets = [cs.k1b_inputs(torch, g, B, C, T)
+                for _ in range(max(2, min(16, -(-int(100e6) // (2 * nbytes)))))]
+        k1b(*sets[0])
+        chosen = anti_alias.chosen_plan(B, C, T)
+        units = chosen["rows"] if chosen["multi_row"] else chosen["chunks"]
+        ms = {}
+        for steps in sorted({1, 2, 4, 8, chosen["steps"] - 1, chosen["steps"] + 1}):
+            if 1 <= steps <= units:
+                plan = anti_alias.backward_plan(B, C, T, True, chosen["blocks_per_sm"],
+                                                chosen["sms"], steps=steps)
+                ms[steps] = round(cs.cuda_ms(lambda *a, p=plan: anti_alias._backward(*a, True, p),
+                                             sets, max(20, len(sets))), 5)
+        ms[f"chosen {chosen['steps']}"] = round(cs.cuda_ms(k1b, sets, max(20, len(sets))), 5)
+        print(f"{name} K1b B={B} C={C} T={T} ms by steps a segment {ms}", flush=True)
+        del sets
 
 
 def k1_scaling(torch, cs, k1, name: str, shape) -> None:
