@@ -128,8 +128,10 @@
      steps on synthetic batches (step ms, samples/s, peak memory, K1 and
      K1b launches a step, a model-FLOPs share of the fp32 peak, a profile
      of one step) and 3 steps through the CLI over the extraction output
-     of phase 8 with its full-width GPT; the checkpoint loads back equal;
-     the trained generator through bigvgan_generator.pth into an engine:
+     of phase 8 with its full-width GPT, under `python -m
+     torch.distributed.run --nproc_per_node 1` (an NCCL world of one, K1
+     and K1b counted in the rank); the checkpoint loads back equal;
+     the CLI's trained generator through bigvgan_generator.pth into an engine:
      one request, K1 109 times a vocode and K1b never, its vocoder output
      bit-equal to the in-memory generator's, the speaker similarity of its
      wav to the prompt.
@@ -188,9 +190,27 @@
 
     python3 chip_smoke.py --dp 4
 
-runs only the data-parallel check on a machine with four cards:
-`create_batcher(dp=4)`, one pool per card through K4, against one pool's
-greedy codes on a small fp32 model; then the card line and the last line.
+runs only the data-parallel checks on a machine with four cards:
+1. `create_batcher(dp=4)`, one pool per card through K4, against one
+   pool's greedy codes on a small fp32 model (`tools.entry.pool_group_check`);
+2. the three trainers at full width, each rank a process on its own card
+   (NCCL; `parallel/multihost.run_ranks` over `dp_rank_report`): one step
+   of world 4 against world 1 (rank 0 alone) on the same global batch,
+   losses and reduced gradients within DP_TOL (LoRA on an fp32 base with
+   ranks of ragged lengths, each padded to its own widths; the mean of the
+   ranks' own-count losses, the planted fault, must miss by more); then,
+   with the check's tensors released, timed steps at world 4 and at world
+   1 on a rank's rows (step ms, samples/s or target tokens/s, the
+   all-reduces' ms a step by CUDA events from their launch and from every
+   rank's arrival, peak memory a rank), the ranks' parameters bit-equal by
+   an all-gathered checksum, and for the vocoder `train_vocoder` at world
+   4 with K1 and K1b counted on every rank;
+3. the LoRA Trainer's and the DVAE's CLIs unchanged under
+   `torch.distributed.run --nproc_per_node 4` on the small model;
+4. `tools.entry.dryrun_multichip(4)`: the toy step over 4 NCCL ranks
+   against one card, and the pool group;
+then the card line and the last line.  Any failed check, or a rank that
+dies or outlives its limit, exits non-zero before that line.
 """
 
 from __future__ import annotations
@@ -1311,14 +1331,16 @@ def pool_small_agreement(torch, engine_mod, pool_trunk, prompt: str) -> None:
         raise SmokeFailure(f"small pool: card codes {codes['cuda']} != single decode {single}")
 
 
-def pool_group_agreement(torch, engine_mod, pool_trunk, prompt: str, dp: int) -> None:
+def pool_group_agreement(torch, engine_mod, prompt: str, dp: int) -> None:
     """`create_batcher(dp=N)`: a PoolGroup of N pools, one per card, on the
     small fp32 model through K4 (8 slots each, 4-step ticks with staged
-    refill).  Thirty greedy requests must give the codes of one pool on
-    cuda:0, each pool's weights and state must sit on its own card, every
-    pool must take work, and K4 must launch once per step of each pool."""
+    refill), held by `tools.entry.pool_group_check`: thirty greedy requests
+    must give the codes of one pool on cuda:0, each pool's weights and
+    state must sit on its own card, every pool must take work, and K4 must
+    launch once per step of each pool."""
     import numpy as np
     from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.tools import entry
 
     eng = engine_mod.IndexTTS(config=Config.from_dict(SMALL_MODEL), device="cuda", seed=0,
                               model_dir=os.path.join(HERE, "checkpoints_test"),
@@ -1326,27 +1348,10 @@ def pool_group_agreement(torch, engine_mod, pool_trunk, prompt: str, dp: int) ->
     ids = [np.asarray(eng.tokenizer.encode(t), np.int32) for t in POOL_TEXTS] * 3
     kw = dict(fused_trunk=True, num_slots=8, steps_per_tick=4, max_text_width=32,
               max_new=24, do_sample=False)
-    one = eng.create_batcher(prompt, **kw)
-    rids = [one.submit(x) for x in ids]
-    res = one.run()
-    want = [res[r].tolist() for r in rids]
-    group = eng.create_batcher(prompt, dp=dp, **kw)
-    pool_trunk.fused_pool_step.launches = 0
-    gids = [group.submit(x) for x in ids]
-    res = group.run()
-    got = [res[g].tolist() for g in gids]
-    launches = pool_trunk.fused_pool_step.launches
-    steps = [b.step_count for b in group.batchers]
-    placed = [(str(b.device), str(b.state.prev_tok.device),
-               str(b.params["gpt"]["blocks"]["attn"]["qkv_w"].device)) for b in group.batchers]
-    ok = (got == want and launches == sum(steps) and all(s > 0 for s in steps)
-          and placed == [(f"cuda:{i}",) * 3 for i in range(dp)])
-    emit({"check": f"pool group: create_batcher(dp={dp}) vs one pool, greedy codes",
-          "requests": len(ids), "pool_steps": steps, "K4_launches": launches,
-          "placement": placed, "ok": ok})
-    if not ok:
-        raise SmokeFailure(f"pool group dp={dp}: codes equal {got == want}, K4 {launches} "
-                           f"over steps {steps}, placement {placed}")
+    seen = entry.pool_group_check(lambda n: eng.create_batcher(prompt, dp=n, **kw), ids, dp)
+    emit({"check": f"pool group: create_batcher(dp={dp}) vs one pool, greedy codes", **seen})
+    if not seen["ok"]:
+        raise SmokeFailure(f"pool group dp={dp}: {seen}")
 
 
 def _to_numpy(tree):
@@ -2414,10 +2419,10 @@ def lora_finetune(torch, engine_mod, kernels, prompt: str, out_dir: str) -> dict
     steps = []
     inner = trainer.train_step
 
-    def timed(state, base, batch, *args):
+    def timed(state, base, batch, *args, **kw):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = inner(state, base, batch, *args)
+        out = inner(state, base, batch, *args, **kw)
         e1.record()
         steps.append((e0, e1, batch, out[1]))
         return out
@@ -3125,8 +3130,8 @@ def extract_and_dvae(torch, out_dir: str) -> str:
     lora_losses = []
     inner_lora = trainer.train_step
 
-    def lora_step(*args):
-        out = inner_lora(*args)
+    def lora_step(*args, **kw):
+        out = inner_lora(*args, **kw)
         lora_losses.append(out[1]["loss"])
         return out
 
@@ -3523,8 +3528,11 @@ def vocoder_train(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
       first excluded), samples/s, peak memory, the model-FLOPs share of the
       fp32 peak, a profile of one step; its checkpoint loads back equal;
     - 3 steps through `python -m indextts_tpu_torch.train.vocoder
-      --processed` over the extraction output of `extract_and_dvae` (under
-      `root`) with its full-width GPT, fine-tuning the first run's generator;
+      --processed` under `python -m torch.distributed.run --nproc_per_node
+      1` (an NCCL world of one; the rank reports its steps' CUDA-event ms and
+      K1 and K1b launches) over the extraction output of `extract_and_dvae`
+      (under `root`) with its full-width GPT, fine-tuning the first run's
+      generator; its checkpoint is what the next step serves;
     - the loop closed: the trained generator, rounded to the engine's bf16
       vocoder type (so that the file's weight-norm fold lands on the same
       bf16 weights), through save_bigvgan_pth into an IndexTTS engine with
@@ -3551,18 +3559,18 @@ def vocoder_train(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
     inner = vocoder.train_step
     steps, last = [], []
 
-    def timed_step(state, batch, *args):
+    def timed_step(state, batch, *args, **kw):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         n0 = (k1.launches, k1b.launches)
         e0.record()
-        out = inner(state, batch, *args)
+        out = inner(state, batch, *args, **kw)
         e1.record()
         steps.append((e0, e1, (k1.launches - n0[0], k1b.launches - n0[1]), out[1]))
         last[:] = [out[0], batch, args]
         return out
 
     def launches_per_step(run):
-        return sorted({n for _, _, n, _ in run})
+        return sorted({run_[-2] for run_ in run})
 
     model_dir = os.path.join(root, "model")
     for k in kernels.values():
@@ -3581,26 +3589,29 @@ def vocoder_train(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         synthetic, steps = steps, []
         state, batch, step_args = last
-        # the same loop over the extraction output, through the CLI, from
-        # this run's generator
-        export.save_bigvgan_pth(os.path.join(model_dir, "bigvgan_generator.pth"),
-                                tree_map(lambda p: p.bfloat16().float(), state.gen_params), cfg)
-        t0 = time.perf_counter()
-        vocoder.main(["--processed", os.path.join(root, "extracted"), "--model_dir", model_dir,
-                      "--out", os.path.join(root, "vocoder_latents"), "--steps", "3",
-                      "--device", "cuda"])
-        torch.cuda.synchronize()
-        latent_s = time.perf_counter() - t0
-        latent_run = steps
-        trained = last[0]
     finally:
         vocoder.train_step = inner
     n_k1, n_k1b = k1.launches, k1b.launches
+    # the same loop over the extraction output, through the CLI under
+    # torch.distributed.run (an NCCL world of one), from this run's generator
+    export.save_bigvgan_pth(os.path.join(model_dir, "bigvgan_generator.pth"),
+                            tree_map(lambda p: p.bfloat16().float(), state.gen_params), cfg)
+    t0 = time.perf_counter()
+    cli = torchrun_ranks(1, "--vocoder-cli-rank", os.path.join(root, "cli_rank"),
+                         ["--processed", os.path.join(root, "extracted"), "--model_dir",
+                          model_dir, "--out", os.path.join(root, "vocoder_latents"),
+                          "--steps", "3", "--device", "cuda"], timeout=300)[0]
+    latent_s = time.perf_counter() - t0
+    latent_run = [(ms_, tuple(n), m) for ms_, n, m in zip(cli["step_ms"], cli["launches"],
+                                                         cli["losses"])]
+    n_k1, n_k1b = n_k1 + cli["K1"], n_k1b + cli["K1b"]
+    trained = checkpoint.load_pytree(os.path.join(root, "vocoder_latents", "vocoder_step_3"),
+                                     "cuda")["gen_params"]
 
     ms = [a.elapsed_time(b) for a, b, _, _ in synthetic]
     step_ms = float(np.median(ms[1:]))
     losses = [{k: float(v) for k, v in m.items()} for _, _, _, m in synthetic]
-    lat_losses = [{k: float(v) for k, v in m.items()} for _, _, _, m in latent_run]
+    lat_losses = [m for _, _, m in latent_run]
     finite = all(math.isfinite(v) for m in losses + lat_losses for v in m.values())
     ck = checkpoint.load_pytree(os.path.join(run_dir, f"vocoder_step_{tc.steps}"))
     saved = ck["step"] == tc.steps and [d["period"] for d in ck["disc_params"]["mpd"]] == \
@@ -3648,10 +3659,13 @@ def vocoder_train(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
                                    e.key[:80]: dev(e) / 1e3 for e in
                                    sorted(launched, key=dev, reverse=True)[:8]}}})
     emit({"phase": "vocoder training over the extraction output (latent_batches, the "
-                   "full-width GPT), through the CLI, 3 steps", "s": latent_s,
-          "step_ms": [a.elapsed_time(b) for a, b, _, _ in latent_run],
-          "K1_K1b_launches_per_step": launches_per_step(latent_run), "losses": lat_losses})
+                   "full-width GPT), through the CLI under torch.distributed.run "
+                   "--nproc_per_node 1, 3 steps", "s": latent_s, "world": cli["world"],
+          "backend": cli["backend"], "step_ms": cli["step_ms"],
+          "K1_K1b_launches_per_step": launches_per_step(latent_run),
+          "K1_K1b_launches": [cli["K1"], cli["K1b"]], "losses": lat_losses})
     if not finite or not saved or len(ms) != 20 or len(latent_run) != 3 \
+            or (cli["world"], cli["backend"]) != (1, "nccl") \
             or launches_per_step(synthetic + latent_run) != [(K1_PER_VOCODE, K1_PER_VOCODE)]:
         raise SmokeFailure(f"vocoder training: finite {finite}, checkpoint {saved}, launches "
                            f"{launches_per_step(synthetic + latent_run)}")
@@ -3661,7 +3675,7 @@ def vocoder_train(torch, engine_mod, kernels, prompt: str, root: str) -> tuple:
     os.makedirs(serve_dir)
     for f in ("vocab.txt", "gpt.pth"):
         os.link(os.path.join(model_dir, f), os.path.join(serve_dir, f))
-    serving = tree_map(lambda p: p.bfloat16(), trained.gen_params)
+    serving = tree_map(lambda p: p.bfloat16(), trained)
     export.save_bigvgan_pth(os.path.join(serve_dir, "bigvgan_generator.pth"),
                             tree_map(torch.Tensor.float, serving), cfg)
     del trained
@@ -3822,8 +3836,10 @@ def tools_bench(torch, kernels, prompt: str) -> dict:
     def fail(what, out):
         raise SmokeFailure(f"{what}: {json.dumps(out)[:3000]}")
 
+    # eight eager rows are host-bound (22.5 s at two timed runs on an H100
+    # host): one timed run gives back part of the vocoder CLI launcher's time
     for argv in (["--batch", "1", "--max-new", "200", "--warmup", "1", "--iters", "2"],
-                 ["--batch", "8", "--max-new", "50", "--warmup", "1", "--iters", "2"]):
+                 ["--batch", "8", "--max-new", "50", "--warmup", "1", "--iters", "1"]):
         out = run("bench " + " ".join(argv[:2]), bench.main, argv)
         for r in out["results"]:
             k2 = r["launches"]["K2"]
@@ -3840,11 +3856,15 @@ def tools_bench(torch, kernels, prompt: str) -> dict:
             total = _sum_launches(total, _entry_launches(n, "int8"))
     if set(out["modes"]) != {"infer", "infer_fast", "infer_stream"}:
         fail("bench_e2e --long modes", out)
-    out = run("bench_pool", bench_pool.main, ["--slots", "8", "--reqs", "16", "--iters", "1"])
+    # 8 requests, one wave of the 8 slots: the host-bound plain pool took
+    # 35.7 s at 16 on an H100 host; the vocoder CLI's launcher costs about
+    # 38 s, taken back here and in the K4 pool's, bench's and the beam step's
+    # depth
+    out = run("bench_pool", bench_pool.main, ["--slots", "8", "--reqs", "8", "--iters", "1"])
     if not out["value"] > 0:
         fail("bench_pool", out)
     out = run("bench_pool --fused-trunk", bench_pool.main,
-              ["--slots", "8", "--reqs", "16", "--fused-trunk"])
+              ["--slots", "8", "--reqs", "8", "--fused-trunk"])
     if not out["fused_trunk"] or out["launches"]["K4"] == 0:
         fail("bench_pool --fused-trunk: K4", out)
     total = _sum_launches(total, _entry_launches(out["launches"], k4_tier="int8_fp8cache"))
@@ -3853,8 +3873,8 @@ def tools_bench(torch, kernels, prompt: str) -> dict:
     if out["launches"]["K1"] == 0 or out["launches"]["K4"] == 0 or out["requests"] != 8:
         fail("bench_pool --e2e", out)
     total = _sum_launches(total, _entry_launches(out["launches"], k4_tier="int8_fp8cache"))
-    out = run("bench_beam_step", bench_beam_step.main,
-              ["--reorders", "lineage,pallas", "--max-new", "100", "--iters", "2",
+    out = run("bench_beam_step", bench_beam_step.main,   # host-bound: one timed decode
+              ["--reorders", "lineage,pallas", "--max-new", "40", "--iters", "1",
                "--warmup", "1"])
     k3 = {r["reorder"]: r["launches"]["K3"] for r in out["results"]}
     if k3.get("lineage") != 0 or not k3.get("pallas"):
@@ -4162,6 +4182,604 @@ def tools_phase(torch, engine_mod, kernels, prompt: str, out_dir: str, trained: 
     return total
 
 
+# -- data-parallel training across cards (torch.distributed: one process a
+# card, NCCL), driven through torch.distributed.run
+
+DP_STEPS = {"lora": 8, "dvae": 20, "vocoder": 10}   # timed steps a world (the first left out)
+# world N against world 1 on the same global batch, fp32, TF32 off: losses
+# relative; each gradient leaf against its largest magnitude, or 1e-5 of the
+# tree's largest where that is more (a leaf that is zero in exact arithmetic
+# holds rounding noise in both; cuDNN's backward is not bit-reproducible)
+DP_TOL = {
+    "lora": {"loss": 1e-5, "grads": 1e-4},
+    "dvae": {"loss": 1e-4, "grads": 1e-3},
+    "vocoder": {"loss": 1e-4, "grads": 1e-3},
+}
+DP_LEAF_FLOOR = 1e-5
+
+
+def torchrun_ranks(nproc: int, flag: str, out_dir: str, argv=(), timeout: float = 600.0,
+                   module=None) -> list:
+    """Run `python -m torch.distributed.run --standalone --nproc_per_node
+    nproc` over this script's `flag out_dir [argv]` rank entry (or over
+    `-m module argv`), in a process session of its own that is killed whole
+    on timeout; return the ranks' JSON reports (out_dir/rank{r}.json), or []
+    for a module.  A rank that fails fails the run."""
+    import signal
+
+    os.makedirs(out_dir, exist_ok=True)
+    target = ["-m", module, *argv] if module else [os.path.join(HERE, "chip_smoke.py"), flag,
+                                                   out_dir, "--", *argv]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *target]
+    log_path = os.path.join(out_dir, "torchrun.log")
+    with open(log_path, "w+b") as log:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+        if rc != 0:
+            log.seek(0)
+            tail = log.read().decode(errors="replace")[-6000:]
+            raise SmokeFailure(f"torch.distributed.run {flag or module} x{nproc}: rc {rc}\n"
+                               f"{tail}")
+    if module:
+        return []
+    reports = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def vocoder_cli_rank(out_dir: str, argv) -> None:
+    """A rank of the vocoder CLI under torch.distributed.run: the CLI's own
+    `main(argv)`, each train step between CUDA events with its K1 and K1b
+    launches, the counts at 0 just before; the rank's report as JSON."""
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import anti_alias
+    from indextts_tpu_torch.parallel import mesh
+    from indextts_tpu_torch.train import vocoder
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    k1, k1b = anti_alias.fused_anti_alias_activation, anti_alias.anti_alias_activation_backward
+    inner, steps = vocoder.train_step, []
+    os.makedirs(out_dir, exist_ok=True)
+
+    def timed(state, batch, *args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        n0 = (k1.launches, k1b.launches)
+        e0.record()
+        out = inner(state, batch, *args, **kw)
+        e1.record()
+        steps.append((e0, e1, (k1.launches - n0[0], k1b.launches - n0[1]), out[1]))
+        return out
+
+    vocoder.train_step = timed
+    k1.launches = k1b.launches = 0
+    vocoder.main(list(argv))
+    torch.cuda.synchronize()
+    report = {"rank": mesh.rank(), "world": mesh.world(),
+              "backend": torch.distributed.get_backend() if mesh.is_initialized() else None,
+              "step_ms": [a.elapsed_time(b) for a, b, _, _ in steps],
+              "launches": [list(n) for _, _, n, _ in steps],
+              "losses": [{k: float(v) for k, v in m.items()} for *_, m in steps],
+              "K1": k1.launches, "K1b": k1b.launches}
+    with open(os.path.join(out_dir, f"rank{mesh.rank()}.json"), "w") as f:
+        json.dump(report, f)
+    mesh.shutdown()
+
+
+class RecordingOptimizer:
+    """An optimizer whose `step` keeps the gradients it is given, in order:
+    a step's reduced gradients (the vocoder's discriminators', then its
+    generator's)."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, []
+
+    def step(self, grads, *args):
+        self.grads.append(grads)
+        return self.opt.step(grads, *args)
+
+
+class CollectiveTimer:
+    """While active, every `torch.distributed.all_reduce` of a tensor on the
+    card is timed by CUDA events on the calling stream: from its launch,
+    the wait for the slowest rank included, and from the moment every rank
+    has arrived to its end.  The arrival is the end of a one-element
+    all-reduce over the same group made just before (no rank passes it
+    until all have posted it).  `calls` holds each call's three events."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        torch = self.torch
+        dist = torch.distributed
+        inner = self.inner = dist.all_reduce
+
+        def timed(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+            if async_op or not tensor.is_cuda:
+                return inner(tensor, op=op, group=group, async_op=async_op)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            inner(torch.zeros(1, device=tensor.device), group=group)
+            events[1].record()
+            out = inner(tensor, op=op, group=group)
+            events[2].record()
+            self.calls.append(events)
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.distributed.all_reduce = self.inner
+
+
+def _timing_summary(torch, runs) -> dict:
+    """Step ms, the collectives' ms a step (from launch, and from every
+    rank's arrival) and the peak memory since the last reset, from each
+    run's (start, end, collective events); the medians leave out the first
+    step."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b, _ in runs]
+    waited = [sum(e[0].elapsed_time(e[2]) for e in c) for _, _, c in runs]
+    moved = [sum(e[1].elapsed_time(e[2]) for e in c) for _, _, c in runs]
+    return {"step_ms": ms, "step_ms_median": float(np.median(ms[1:])),
+            "collective_ms_median": float(np.median(waited[1:])),
+            "allreduce_transfer_ms_median": float(np.median(moved[1:])),
+            "collectives_per_step": len(runs[-1][2]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _dp_timed(torch, step, n: int) -> dict:
+    """`step()` n times, each between CUDA events, its all-reduces timed by
+    CollectiveTimer; the peak memory from a reset just before, so the
+    caller must hold on the card nothing but what the steps use."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    with CollectiveTimer(torch) as timer:
+        for _ in range(n):
+            c0 = len(timer.calls)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            step()
+            e1.record()
+            runs.append((e0, e1, timer.calls[c0:]))
+    return _timing_summary(torch, runs)
+
+
+def _moved(tree, device):
+    """A copy of a tree's tensors on `device`."""
+    from indextts_tpu_torch.parallel import mesh
+
+    leaves, rebuild = mesh._flatten(tree)
+    return rebuild([x.to(device, copy=True) for x in leaves])
+
+
+def _max_rel(torch, got, want) -> tuple:
+    """Over the leaves: max |got - want| over the leaf's largest |want| (or
+    DP_LEAF_FLOOR of the tree's largest, where that is more), and the
+    leaf where it is reached."""
+    from indextts_tpu_torch.parallel import mesh
+
+    g, _ = mesh._flatten(got)
+    w, _ = mesh._flatten(want)
+    assert len(g) == len(w)
+    top = max(float(b.abs().max()) for b in w)
+    errs = [float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()),
+                                                             DP_LEAF_FLOOR * top, 1e-30)
+            for a, b in zip(g, w)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return errs[worst], worst
+
+
+def _dp_compare(torch, mesh, kind: str, m_n: dict, g_n, run_one) -> dict:
+    """Rank 0 runs the one-card step on the global batch (`run_one()` ->
+    (metrics, grads)) and holds the world's reduced metrics and gradients
+    against it; the others wait.  Returns the errors on rank 0, {} elsewhere."""
+    out = {}
+    if mesh.is_main():
+        m_1, g_1 = run_one()
+        err, worst = _max_rel(torch, g_n, g_1)
+        out = {"loss_rel_err": max(abs(float(m_n[k]) - float(m_1[k]))
+                                   / max(abs(float(m_1[k])), 1e-30)
+                                   for k in m_1 if "loss" in k or k.startswith("gen_")),
+               "grads_rel_err": err, "grads_worst_leaf": worst,
+               "world_1_metrics": {k: float(v) for k, v in m_1.items()},
+               "tol": DP_TOL[kind]}
+        out["ok"] = out["loss_rel_err"] <= DP_TOL[kind]["loss"] and \
+            out["grads_rel_err"] <= DP_TOL[kind]["grads"]
+        del g_1
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def _lora_rows(np, rng, B: int, sort: bool):
+    """B rows of a LoRA batch at full width (20-120 text tokens, 150-450
+    codes, 600-1800 condition frames), sorted by length when `sort`."""
+    tl, cl, ml = rng.integers(20, 121, B), rng.integers(150, 451, B), rng.integers(600, 1801, B)
+    if sort:
+        tl, cl, ml = np.sort(tl), np.sort(cl), np.sort(ml)
+    return {"text_lengths": tl, "codes_lengths": cl, "cond_lengths": ml,
+            "text": [rng.integers(2, 12000, n) for n in tl],
+            "codes": [rng.integers(0, 8192, n) for n in cl],
+            "cond": [rng.standard_normal((100, n)).astype(np.float32) for n in ml]}
+
+
+def _lora_batch(torch, np, rows: dict, lo: int, hi: int, device):
+    """Rows lo..hi collated as the loader does: each width the rows' longest
+    rounded up to 32."""
+    from indextts_tpu_torch.train import trainer
+
+    up = lambda n: -(-int(n) // 32) * 32  # noqa: E731
+    sl = slice(lo, hi)
+    Tt, Tc, Tm = (up(rows[k][sl].max()) for k in ("text_lengths", "codes_lengths",
+                                                   "cond_lengths"))
+    B = hi - lo
+    text, codes = np.zeros((B, Tt), np.int64), np.zeros((B, Tc), np.int64)
+    cond = np.zeros((B, 100, Tm), np.float32)
+    for i in range(B):
+        text[i, :len(rows["text"][lo + i])] = rows["text"][lo + i]
+        codes[i, :len(rows["codes"][lo + i])] = rows["codes"][lo + i]
+        cond[i, :, :rows["cond"][lo + i].shape[1]] = rows["cond"][lo + i]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return trainer.Batch(t(text), t(rows["text_lengths"][sl]), t(codes),
+                         t(rows["codes_lengths"][sl]), t(cond), t(rows["cond_lengths"][sl]))
+
+
+def dp_lora(torch, mesh, device) -> dict:
+    """LoRA at full width (24 layers, 1280 wide, 20 heads), 8 rows a rank.
+    Correctness on an fp32 base: one step on a global batch of 8 x world
+    rows sorted by length, so that each rank holds other token counts and
+    pads to its own widths, against the one-card step on all of them (rank
+    0); the mean of the ranks' own-count losses (the planted fault) must
+    miss.  Throughput on the bf16 base the trainer trains: DP_STEPS
+    micro-steps of unsorted rows at world N, then 8 rows on rank 0 alone,
+    each from the starting state with the check's tensors released."""
+    import numpy as np
+
+    from indextts_tpu_torch.config import GPTConfig, LoRAConfig, TrainConfig
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.train import trainer
+    from indextts_tpu_torch.train.lora import tree_map
+
+    r, n, group = mesh.rank(), mesh.world(), mesh.data_group()
+    cfg, lcfg = GPTConfig(), LoRAConfig()
+    opt = trainer.make_optimizer(TrainConfig(), 100)
+    base = uv.init_params(cfg, torch.Generator(device=device).manual_seed(0), torch.float32,
+                          device)
+    state = trainer.init_train_state(torch.Generator(device=device).manual_seed(1), cfg, lcfg,
+                                     opt, device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    # PEFT's zero `b` moved off zero, so that both factors have gradients
+    adapters = tree_map(lambda x: x + 0.01 * torch.randn(x.shape, generator=gen, device=device,
+                                                         dtype=x.dtype), state.lora_params)
+    state = trainer.TrainState(adapters, opt.init(adapters), state.step)
+    base, state = mesh.broadcast_tree((base, state))
+    rows = _lora_rows(np, np.random.default_rng(7), 8 * n, sort=True)
+    mine = _lora_batch(torch, np, rows, 8 * r, 8 * r + 8, device)
+    rec = RecordingOptimizer(opt)
+    _, m_n = trainer.train_step(state, base, mine, cfg, lcfg, rec, 0.1, 0.0, group=group)
+    local, _, _ = trainer.loss_and_grads(state, base, mine, cfg, lcfg, 0.1)
+    local = mesh.all_gather_host([float(local)], group)
+    out = {"widths": mesh.all_gather_host([mine.text_ids.shape[1], mine.mel_codes.shape[1],
+                                             mine.cond_mel.shape[2]], group),
+           "metrics": {k: float(v) for k, v in m_n.items()}}
+
+    def one():
+        full = _lora_batch(torch, np, rows, 0, 8 * n, device)
+        rec_1 = RecordingOptimizer(opt)
+        _, m_1 = trainer.train_step(state, base, full, cfg, lcfg, rec_1, 0.1, 0.0)
+        return m_1, rec_1.grads[0]
+
+    out["check"] = _dp_compare(torch, mesh, "lora", m_n, rec.grads[0], one)
+    if mesh.is_main():
+        ref = out["check"]["world_1_metrics"]["loss"]
+        out["check"]["mean_of_rank_means_rel_err"] = abs(np.mean(local) - ref) / abs(ref)
+    # throughput on the bf16 base
+    start = _moved(state, "cpu")
+    base = tree_map(lambda x: x.bfloat16(), base)
+    del rec, m_n, state, mine
+    torch.cuda.empty_cache()
+    rows = _lora_rows(np, np.random.default_rng(8), 8 * n, sort=False)
+    mine = _lora_batch(torch, np, rows, 8 * r, 8 * r + 8, device)
+    targets = int((rows["text_lengths"] + 1).sum() + (rows["codes_lengths"] + 1).sum())
+    holder = [_moved(start, device)]
+
+    def step_n():
+        holder[0] = trainer.train_step(holder[0], base, mine, cfg, lcfg, opt, 0.1, 0.0,
+                                       group=group)[0]
+
+    out["world_n"] = _dp_timed(torch, step_n, DP_STEPS["lora"])
+    out["world_n"]["target_tokens_per_s"] = targets / (out["world_n"]["step_ms_median"] / 1e3)
+    out["checksum"] = mesh.all_gather_host([_checksum(holder[0])], group)
+    del holder
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if mesh.is_main():
+        own = int((rows["text_lengths"][:8] + 1).sum() + (rows["codes_lengths"][:8] + 1).sum())
+        holder_1 = [_moved(start, device)]
+
+        def step_1():
+            holder_1[0] = trainer.train_step(holder_1[0], base, mine, cfg, lcfg, opt, 0.1,
+                                             0.0)[0]
+
+        out["world_1"] = _dp_timed(torch, step_1, DP_STEPS["lora"])
+        out["world_1"]["target_tokens_per_s"] = own / (out["world_1"]["step_ms_median"] / 1e3)
+        del holder_1
+    mesh.barrier()
+    del base, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _checksum(tree) -> float:
+    from indextts_tpu_torch.parallel import multihost
+
+    return float(multihost.tree_checksum(tree))
+
+
+def dp_dvae(torch, mesh, device) -> dict:
+    """The DVAE at the shipped config, 32 windows of 256 frames a rank
+    (DVAETrainConfig's defaults): one step against the one-card step on all
+    the windows (rank 0), then DP_STEPS timed steps at world N and 32
+    windows on rank 0 alone, each from the starting state with the check's
+    tensors released."""
+    import numpy as np
+
+    from indextts_tpu_torch.config import VQVAEConfig
+    from indextts_tpu_torch.train import dvae as dtrain
+
+    r, n, group = mesh.rank(), mesh.world(), mesh.data_group()
+    cfg, tc = VQVAEConfig(), dtrain.DVAETrainConfig()
+    opt = dtrain.make_optimizer(tc)
+    state = mesh.broadcast_tree(dtrain.init_state(
+        cfg, opt, torch.Generator(device=device).manual_seed(tc.seed), None, device))
+    mels = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (32 * n, 100, 256)).astype(np.float32)).to(device)
+    mine = mels[32 * r:32 * r + 32].contiguous()
+    rec = RecordingOptimizer(opt)
+    _, m_n = dtrain.train_step(state, mine, cfg, rec, tc, group=group)
+    out = {"metrics": {k: float(v) for k, v in m_n.items()}}
+
+    def one():
+        rec_1 = RecordingOptimizer(opt)
+        _, m_1 = dtrain.train_step(state, mels, cfg, rec_1, tc)
+        return m_1, rec_1.grads[0]
+
+    out["check"] = _dp_compare(torch, mesh, "dvae", m_n, rec.grads[0], one)
+    start = _moved(state, "cpu")
+    del rec, m_n, state, mels
+    torch.cuda.empty_cache()
+    holder = [_moved(start, device)]
+
+    def step_n():
+        holder[0] = dtrain.train_step(holder[0], mine, cfg, opt, tc, group=group)[0]
+
+    out["world_n"] = _dp_timed(torch, step_n, DP_STEPS["dvae"])
+    out["world_n"]["windows_per_s"] = 32 * n / (out["world_n"]["step_ms_median"] / 1e3)
+    out["checksum"] = mesh.all_gather_host([_checksum(holder[0])], group)
+    del holder
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if mesh.is_main():
+        holder_1 = [_moved(start, device)]
+
+        def step_1():
+            holder_1[0] = dtrain.train_step(holder_1[0], mine, cfg, opt, tc)[0]
+
+        out["world_1"] = _dp_timed(torch, step_1, DP_STEPS["dvae"])
+        out["world_1"]["windows_per_s"] = 32 / (out["world_1"]["step_ms_median"] / 1e3)
+        del holder_1
+    mesh.barrier()
+    del mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_vocoder(torch, mesh, device, out_dir: str) -> dict:
+    """The vocoder at full width (BigVGAN 1536 channels, fp32, 8 rows of 24
+    codes a rank): one step against the one-card step on all the rows (rank
+    0); then, with the check's tensors released, `train_vocoder` at world N
+    over DP_STEPS synthetic global batches (each rank its rows, K1 and K1b
+    counted on each rank with the counts at 0 just before), and 8 rows on
+    rank 0 alone from the starting state."""
+    from indextts_tpu_torch.config import BigVGANConfig
+    from indextts_tpu_torch.ops.cuda import anti_alias
+    from indextts_tpu_torch.train import vocoder
+
+    r, n, group = mesh.rank(), mesh.world(), mesh.data_group()
+    k1, k1b = anti_alias.fused_anti_alias_activation, anti_alias.anti_alias_activation_backward
+    cfg = BigVGANConfig()
+    steps = DP_STEPS["vocoder"]
+    tc = vocoder.VocoderTrainConfig(batch_size=8 * n, steps=steps, log_every=steps,
+                                    checkpoint_every=0)
+    opt = vocoder.make_optimizer(tc)
+    state, aux = vocoder.init_state(torch.Generator(device=device).manual_seed(tc.seed), cfg,
+                                    opt, None, tc.periods, tc.resolutions, device=device)
+    state = mesh.broadcast_tree(state)
+    glob = next(vocoder.synthetic_batches(cfg, tc))
+    mine = vocoder.to_device(glob, tc.batch_size, device, slice(8 * r, 8 * r + 8))
+    rec = RecordingOptimizer(opt)
+    _, m_n = vocoder.train_step(state, mine, aux, cfg, rec, tc, group)
+    out = {"metrics": {k: float(v) for k, v in m_n.items()}}
+
+    def one():
+        rec_1 = RecordingOptimizer(opt)
+        _, m_1 = vocoder.train_step(state, vocoder.to_device(glob, tc.batch_size, device), aux,
+                                    cfg, rec_1, tc)
+        return m_1, rec_1.grads
+
+    out["check"] = _dp_compare(torch, mesh, "vocoder", m_n, rec.grads, one)
+    start = _moved(state, "cpu")
+    del rec, m_n, state
+    torch.cuda.empty_cache()
+    # the loop at world N: the counts at 0 just before, read just after
+    inner, runs = vocoder.train_step, []
+
+    def timed(*args, **kw):
+        c0 = len(timer.calls)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = inner(*args, **kw)
+        e1.record()
+        runs.append((e0, e1, timer.calls[c0:]))
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1b.launches = 0
+    vocoder.train_step = timed
+    try:
+        with CollectiveTimer(torch) as timer:
+            trained = vocoder.train_vocoder(cfg, tc, vocoder.synthetic_batches(cfg, tc),
+                                            os.path.join(out_dir, "vocoder_dp"), device=device)
+    finally:
+        vocoder.train_step = inner
+    out["world_n"] = _timing_summary(torch, runs)
+    out["world_n"]["samples_per_s"] = tc.batch_size / (out["world_n"]["step_ms_median"] / 1e3)
+    out["launches"] = mesh.all_gather_host([k1.launches, k1b.launches], group)
+    out["checksum"] = mesh.all_gather_host([_checksum(trained)], group)
+    del trained
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if mesh.is_main():
+        holder = [_moved(start, device)]
+
+        def step_1():
+            holder[0] = vocoder.train_step(holder[0], mine, aux, cfg, opt, tc)[0]
+
+        out["world_1"] = _dp_timed(torch, step_1, steps)
+        out["world_1"]["samples_per_s"] = 8 / (out["world_1"]["step_ms_median"] / 1e3)
+        del holder
+    mesh.barrier()
+    del mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_report(device: str, out_dir: str) -> dict:
+    """One rank of the data-parallel training check (`--dp N`), started by
+    parallel/multihost.run_ranks on its own card under NCCL: the three
+    trainers in turn; returns the rank's report."""
+    import torch
+
+    from indextts_tpu_torch.parallel import mesh
+
+    dev = mesh.local_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    report = {"rank": mesh.rank(), "world": mesh.world(), "device": str(dev),
+              "backend": torch.distributed.get_backend(), "card": torch.cuda.get_device_name()}
+    for name, fn in (("lora", dp_lora), ("dvae", dp_dvae),
+                     ("vocoder", lambda t, m, d: dp_vocoder(t, m, d, out_dir))):
+        t0 = time.perf_counter()
+        report[name] = fn(torch, mesh, dev)
+        report[name]["s"] = time.perf_counter() - t0
+    mesh.barrier()
+    return report
+
+
+def dp_training(torch, dp: int, out_dir: str) -> None:
+    """The three trainers across `dp` cards, each rank a process of
+    parallel/multihost.run_ranks; then the LoRA Trainer's and the DVAE's
+    CLIs unchanged under torch.distributed.run on a small model.  Prints a
+    line a trainer (world N and world 1: the check, step ms, throughput,
+    the all-reduces' ms a step from launch and from every rank's arrival,
+    peak memory a rank) and fails on any check."""
+    import shutil
+
+    from indextts_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    reports = multihost.run_ranks("chip_smoke:dp_rank_report", dp, out_dir, device="cuda",
+                                  timeout=900)
+    head = reports[0]
+    failed = []
+    for name, unit in (("lora", "target_tokens_per_s"), ("dvae", "windows_per_s"),
+                       ("vocoder", "samples_per_s")):
+        r0 = head[name]
+        sums = [x[0] for x in r0["checksum"]]
+        line = {"phase": f"data-parallel {name}, full width, world {dp} against world 1",
+                "card": card_line(), "backend": head["backend"], "s": r0["s"],
+                "check": r0["check"], "params_bit_equal_across_ranks": len(set(sums)) == 1,
+                "world_n": {k: v for k, v in r0["world_n"].items() if k != "step_ms"},
+                "world_n_step_ms": r0["world_n"]["step_ms"],
+                "world_1": {k: v for k, v in r0["world_1"].items() if k != "step_ms"},
+                "scaling": r0["world_n"][unit] / r0["world_1"][unit],
+                "peak_gib_by_rank": [x[name]["world_n"]["peak_gib"] for x in reports]}
+        if name == "lora":
+            line["widths_by_rank_text_codes_cond"] = r0["widths"]
+        if name == "vocoder":
+            line["K1_K1b_launches_by_rank"] = r0["launches"]
+            want = DP_STEPS["vocoder"] * K1_PER_VOCODE
+            if any(k1 != want or k1b != want
+                   for k1, k1b in r0["launches"]):
+                failed.append(f"vocoder launches {r0['launches']}")
+        emit(line)
+        if not r0["check"]["ok"] or len(set(sums)) != 1:
+            failed.append(f"{name}: check {r0['check']}, checksums {sums}")
+        if name == "lora" and not (r0["check"]["mean_of_rank_means_rel_err"]
+                                   > DP_TOL["lora"]["loss"]):
+            failed.append(f"lora: the planted fault passed {r0['check']}")
+    emit({"phase": f"data-parallel training across {dp} cards", "s": time.perf_counter() - t0})
+    shutil.rmtree(os.path.join(out_dir, "vocoder_dp"), ignore_errors=True)
+    if failed:
+        raise SmokeFailure("data-parallel training: " + "; ".join(failed))
+    dp_clis(torch, dp, out_dir)
+
+
+def dp_clis(torch, dp: int, out_dir: str) -> None:
+    """The LoRA Trainer's CLI and the DVAE's, unchanged under
+    `python -m torch.distributed.run --nproc_per_node dp` on the small model
+    and small synthetic data: both exit 0, rank 0's artifacts written."""
+    import numpy as np
+
+    from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.utils.textnorm import TextNormalizer
+    from indextts_tpu_torch.utils.tokenizer import TextTokenizer
+
+    t0 = time.perf_counter()
+    root = os.path.join(out_dir, "dp_clis")
+    model_dir = os.path.join(HERE, "checkpoints_test")
+    tok = TextTokenizer(os.path.join(model_dir, "vocab.txt"), TextNormalizer())
+    write_finetune_data(os.path.join(root, "data"), tok, np.random.default_rng(3), clips=16,
+                        valid=2, codes=(20, 60), text_tokens=(5, 30), width=128)
+    cfg = Config.from_dict({**SMALL_MODEL, "train": {
+        "epochs": 1, "batch_size": 8, "max_steps_per_epoch": 2, "valid_batch_size": 2,
+        "finetune_model_dir": os.path.join(root, "out"), "data_path": os.path.join(root, "data"),
+        "mixed_precision": "fp32"}})
+    cfg_path = os.path.join(root, "config.yaml")
+    cfg.save(cfg_path)
+    torchrun_ranks(dp, None, root, ["--config", cfg_path, "--model_dir", model_dir,
+                                    "--run_name", "dp"], timeout=300,
+                   module="indextts_tpu_torch.train.run")
+    lora_files = sorted(os.listdir(os.path.join(root, "out", "dp")))
+    torchrun_ranks(dp, None, root, ["--mels", os.path.join(root, "data"), "--out",
+                                    os.path.join(root, "dvae"), "--steps", "3", "--batch",
+                                    str(2 * dp), "--width", "64"], timeout=300,
+                   module="indextts_tpu_torch.train.dvae")
+    dvae_files = sorted(os.listdir(os.path.join(root, "dvae")))
+    ok = {"checkpoint_epoch_0", "gpt_finetuned.pth", "config_finetuned.yaml"} <= \
+        set(lora_files) and dvae_files == ["dvae_step_3"]
+    emit({"check": f"the LoRA and DVAE CLIs under torch.distributed.run --nproc_per_node {dp}",
+          "s": time.perf_counter() - t0, "lora_artifacts": lora_files,
+          "dvae_artifacts": dvae_files, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"CLIs under torchrun: {lora_files}, {dvae_files}")
+
+
 def main(argv=None) -> int:
     import argparse
     import shutil
@@ -4170,8 +4788,14 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dp", type=int, default=0,
-                   help="run only the data-parallel pool check over this many cards")
+                   help="run only the data-parallel checks over this many cards")
+    p.add_argument("--vocoder-cli-rank", metavar="DIR", help=argparse.SUPPRESS)
+    p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.vocoder_cli_rank:   # a rank under torch.distributed.run
+        sys.path.insert(0, HERE)
+        vocoder_cli_rank(args.vocoder_cli_rank, [a for a in args.rest if a != "--"])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4205,7 +4829,14 @@ def main(argv=None) -> int:
     prompt = os.path.join(out_dir, "prompt.wav")
     write_prompt(prompt)
     if args.dp:
-        pool_group_agreement(torch, engine_mod, pool_trunk, prompt, args.dp)
+        from indextts_tpu_torch.tools import entry
+
+        pool_group_agreement(torch, engine_mod, prompt, args.dp)
+        torch.cuda.empty_cache()
+        dp_training(torch, args.dp, out_dir)
+        t0 = time.perf_counter()
+        dry = entry.dryrun_multichip(args.dp)
+        emit({"phase": f"dryrun_multichip({args.dp})", "s": time.perf_counter() - t0, **dry})
         emit({"phase": "done", "s": time.perf_counter() - t_start})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from indextts_tpu_torch.config import VQVAEConfig
+from indextts_tpu_torch.parallel import mesh
 
 
 @contextlib.contextmanager
@@ -163,16 +164,19 @@ def forward_loss(params: Dict[str, Any], mel: torch.Tensor,
 
 
 def ema_update(codebook: Dict[str, Any], z: torch.Tensor, codes: torch.Tensor,
-               decay: float = 0.99, eps: float = 1e-5) -> Dict[str, torch.Tensor]:
-    """EMA codebook update (xtts_dvae.py:109-122) on one device's batch.
-    The statistics are a one-hot product, `flat.T @ onehot`, which is
-    deterministic where a float scatter-add is not.  The cross-device sum of
-    data-parallel training is not ported."""
+               decay: float = 0.99, eps: float = 1e-5, group=None) -> Dict[str, torch.Tensor]:
+    """EMA codebook update (xtts_dvae.py:109-122).  The statistics are a
+    one-hot product, `flat.T @ onehot`, which is deterministic where a float
+    scatter-add is not.  With a process `group` (data-parallel training,
+    parallel/mesh.py) they are summed over its ranks before the decay, in
+    one collective: JAX's `axis_name` psum, the reference's
+    dist.all_reduce (xtts_dvae.py:113-115)."""
     n_embed = codebook["embed"].shape[1]
     onehot = F.one_hot(codes.reshape(-1).long(), n_embed).to(z.dtype)
     flat = z.reshape(-1, z.shape[-1])
     onehot_sum = onehot.sum(0)
     embed_sum = flat.t() @ onehot
+    onehot_sum, embed_sum = mesh.all_reduce_tree((onehot_sum, embed_sum), group=group)
     cluster_size = codebook["cluster_size"] * decay + onehot_sum * (1 - decay)
     embed_avg = codebook["embed_avg"] * decay + embed_sum * (1 - decay)
     n = cluster_size.sum()

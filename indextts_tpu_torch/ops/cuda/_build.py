@@ -6,12 +6,15 @@ one `nvcc` each, into `indextts_tpu_torch/_build/libkernels.so` (listed in
 .gitignore).  The build is keyed on a hash of the sources and flags: a
 library whose stamp matches is loaded as it is.  The key covers every
 `csrc/*.cu` and `csrc/*.cuh` found on disk, so no header can be left out of
-it.
+it.  A build holds an exclusive lock on `out_dir`, so that of the ranks of
+a data-parallel run, which all reach their first kernel together, one
+builds and the others wait for it and load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -85,13 +88,22 @@ def digest(csrc: Path = CSRC) -> str:
 def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
     """Compile the sources in `csrc` (in parallel) and link libkernels.so in
     `out_dir`, unless the library there was built from the same sources and
-    flags."""
+    flags.  Other processes building into `out_dir` wait for this one."""
     key = digest(csrc)
     lib_path = out_dir / LIB_PATH.name
     stamp = out_dir / "libkernels.sha256"
     if lib_path.exists() and stamp.exists() and stamp.read_text() == key:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (lib_path.exists() and stamp.exists() and stamp.read_text() == key):
+            _compile(csrc, lib_path, stamp, key)
+    return lib_path
+
+
+def _compile(csrc: Path, lib_path: Path, stamp: Path, key: str) -> None:
+    out_dir = lib_path.parent
     units = sources(csrc)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -110,7 +122,6 @@ def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(lib_tmp, lib_path)
     stamp.write_text(key)
-    return lib_path
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,15 +1,19 @@
-"""Single-card entry of the port (counterpart of __graft_entry__.entry): the
-teacher-forced UnifiedVoice forward at the flagship config (24 layers,
-width 1280, 20 heads, bf16, random weights from seed 0).
+"""Entry points of the port (counterpart of __graft_entry__.py): the
+single-card teacher-forced UnifiedVoice forward at the flagship config (24
+layers, width 1280, 20 heads, bf16, random weights from seed 0), and the
+data-parallel dry run across N ranks.
 
     python -m indextts_tpu_torch.tools.entry [--device cuda]
+    python -m indextts_tpu_torch.tools.entry --multichip N [--device cpu]
 
 `entry()` returns ``(fn, args)``: ``fn(*args)`` gives the text and mel
 losses of a batch of 2 rows (64 text tokens and 128 codes, the second row
 half as long).  Running the module calls ``fn`` once on the device and
 prints the losses, whether they are finite, and the seconds the call took
-as one JSON line.  The data-parallel dry run (`dryrun_multichip`) waits
-for training across cards (ROADMAP A14b).
+as one JSON line.  `dryrun_multichip(n)` checks the data-parallel paths
+(see its docstring) and prints one line as JAX's does; the tensor-parallel
+parts of JAX's dry run are not ported yet (ROADMAP A16b), and its
+flagship AOT check lowers XLA programs, which have no counterpart here.
 """
 
 from __future__ import annotations
@@ -53,12 +57,112 @@ def entry(device: Optional[str] = None, cfg: Optional[GPTConfig] = None):
     return fn, (params, cond_latent, text_ids, text_lengths, mel_codes, codes_lengths)
 
 
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> Dict[str, Any]:
+    """The data-parallel dry run over `n_devices` ranks (one card each under
+    NCCL, or gloo processes with device="cpu"), self-checking as JAX's:
+    - the toy LoRA step's loss over n ranks (`parallel/multihost.launch_check`,
+      one OS process a rank, a localhost rendezvous) equals its loss on one
+      device over the same global batch;
+    - on the card, for n >= 2, the serving pool group that
+      `create_batcher(dp=n)` builds (one pool a card, through K4) gives the
+      greedy codes of one pool on cuda:0, every pool takes work on its own
+      card, and K4 launches once per pool step (`pool_group_check`).
+    Raises where a check fails; prints one line and returns its values."""
+    from indextts_tpu_torch.parallel import multihost
+
+    dev = _common.device_of(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n_devices:
+        raise RuntimeError(f"dryrun_multichip({n_devices}): {torch.cuda.device_count()} "
+                           "cards visible")
+    loss = multihost.run_toy_step(world=n_devices, device=dev)
+    if not math.isfinite(loss):
+        raise RuntimeError(f"non-finite loss in the multichip dry run: {loss}")
+    reports = multihost.launch_check(n_devices, dev.type)
+    losses = [r["loss"] for r in reports]
+    multihost_ok = (sorted(r["rank"] for r in reports) == list(range(n_devices))
+                    and all(r["world"] == n_devices for r in reports))
+    loss_equal = all(abs(x - loss) < 1e-4 for x in losses)
+    if not (multihost_ok and loss_equal):
+        raise RuntimeError(f"{n_devices}-rank losses {losses} against the one-device loss "
+                           f"{loss:.6f} on the same global batch")
+    dp_pool_ok = None
+    if dev.type == "cuda" and n_devices >= 2:
+        pool = _pool_group_agrees(n_devices)
+        dp_pool_ok = pool["ok"]
+        if not dp_pool_ok:
+            raise RuntimeError(f"dryrun_multichip({n_devices}): the pool group against one "
+                               f"pool: {pool}")
+    out = {"n": n_devices, "loss": loss, "rank_losses": losses, "loss_equal_1rank": loss_equal,
+           "multihost_ok": multihost_ok, "dp_pool_ok": dp_pool_ok}
+    print(f"dryrun_multichip({n_devices}) OK: loss={loss:.4f} loss_equal_1rank={loss_equal} "
+          f"multihost_ok={multihost_ok} tp_forward_msq=not ported (A16b) "
+          f"tp_decode_codes=not ported (A16b) dp_pool_ok={dp_pool_ok}", flush=True)
+    return out
+
+
+def pool_group_check(make, texts, n: int) -> Dict[str, Any]:
+    """A serving pool group against one pool, greedy: `make(0)` builds one
+    pool on cuda:0 and `make(n)` a group of n pools over cuda:0..n-1 (what
+    `create_batcher(dp=n)` builds), both through K4.  The group must give
+    one pool's codes for every request in `texts`, every pool must take
+    work on its own card (weights and state), and K4 must launch once per
+    step of each pool.  Returns what it saw, `ok` whether all of it held."""
+    from indextts_tpu_torch.ops.cuda import pool_trunk
+
+    one = make(0)
+    ids = [one.submit(t) for t in texts]
+    res = one.run()
+    want = [res[i].tolist() for i in ids]
+    group = make(n)
+    pool_trunk.fused_pool_step.launches = 0
+    gids = [group.submit(t) for t in texts]
+    res = group.run()
+    got = [res[g].tolist() for g in gids]
+    launches = pool_trunk.fused_pool_step.launches
+    steps = [b.step_count for b in group.batchers]
+    placed = [(str(b.device), str(b.state.prev_tok.device),
+               str(b.params["gpt"]["blocks"]["attn"]["qkv_w"].device)) for b in group.batchers]
+    return {"requests": len(texts), "codes_equal": got == want, "pool_steps": steps,
+            "K4_launches": launches, "placement": placed,
+            "ok": (got == want and launches == sum(steps) and all(s > 0 for s in steps)
+                   and placed == [(f"cuda:{i}",) * 3 for i in range(n)])}
+
+
+def _pool_group_agrees(n: int) -> Dict[str, Any]:
+    """`pool_group_check` on the tiny model (head width 64, so the pools
+    step through K4), 12 requests of ragged lengths."""
+    from indextts_tpu_torch.serve.scheduler import ContinuousBatcher, PoolGroup
+
+    cfg = _common.gpt_config(tiny=True)
+    dev = torch.device("cuda", 0)
+    params = _common.random_gpt(cfg, dev, torch.float32, 0)
+    rng = np.random.default_rng(0)
+    cond = torch.as_tensor(rng.standard_normal((1, cfg.condition_num_latent, cfg.model_dim)),
+                           dtype=torch.float32, device=dev)
+    texts = [rng.integers(2, 200, (k,)).astype(np.int32) for k in (9, 5, 7, 4) * 3]
+    kw = dict(num_slots=4, max_text_width=16, max_new=8, do_sample=False,
+              repetition_penalty=1.0, cache_dtype=torch.float32, fused_trunk=True)
+
+    def make(dp):
+        if not dp:
+            return ContinuousBatcher(params, cfg, cond, device=dev, **kw)
+        return PoolGroup.create(params, cfg, cond, [torch.device("cuda", i) for i in range(dp)],
+                                **kw)
+
+    return pool_group_check(make, texts, n)
+
+
 def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiny", action="store_true",
                     help="CPU-sized model: checks the entry, not the card")
+    ap.add_argument("--multichip", type=int, default=0, metavar="N",
+                    help="run the data-parallel dry run over N ranks instead")
     _common.add_device_arg(ap)
     args = ap.parse_args(argv)
+    if args.multichip:
+        return _common.emit({"metric": "dryrun_multichip",
+                             **dryrun_multichip(args.multichip, args.device)})
     tiny = GPTConfig.from_dict({**_common.TINY_MODEL["gpt"], "max_mel_tokens": 128})
     fn, fargs = entry(args.device, tiny if args.tiny else None)
     device = fargs[1].device

@@ -1,7 +1,8 @@
-"""DVAE (mel VQ-VAE) training on one device (counterpart of
-indextts_tpu/train/dvae.py, without its data mesh).
+"""DVAE (mel VQ-VAE) training, on one device or data-parallel across cards
+(counterpart of indextts_tpu/train/dvae.py).
 
     python -m indextts_tpu_torch.train.dvae --mels DIR [--init dvae.pth] [--device cpu]
+    python -m torch.distributed.run --nproc_per_node N -m indextts_tpu_torch.train.dvae ...
 
 The reference ships the DiscreteVAE's training pieces (the EMA quantiser,
 dead-code rebalancing, DiscretizationLoss; xtts_dvae.py:54-174,364-386) but
@@ -14,6 +15,14 @@ no training script; this is the loop the JAX package supplies for them:
     `torch.where` on the device: a step has no host sync;
   * training samples are random fixed-width mel windows, drawn in numpy
     exactly as the JAX package draws them.
+
+Under the launcher (parallel/mesh.py) every rank draws the global batch of
+windows from `tc.seed` and keeps its own rows, which is what JAX's one-host
+run over N devices computes; the shards are equal, so averaged gradients
+and per-element means are the global batch's.  The EMA's statistics, the
+usage histogram and the perplexity's counts are summed over the ranks, and
+every rank takes the same rebalance draw (its generator seeded alike).
+Rank 0 writes the checkpoints.
 
 The step runs with TF32 off.  The rebalance's normal draw comes from the
 caller's generator (JAX's from fold_in(rng, 1)); tests pass JAX's draw as
@@ -38,6 +47,7 @@ from indextts_tpu_torch.config import VQVAEConfig
 from indextts_tpu_torch.io import checkpoint as ckpt_io
 from indextts_tpu_torch.io import from_jax
 from indextts_tpu_torch.models import dvae
+from indextts_tpu_torch.parallel import mesh
 from indextts_tpu_torch.train.lora import tree_map
 from indextts_tpu_torch.train.optim import AdamW
 
@@ -102,12 +112,17 @@ def _loss(grad_params: Dict[str, Any], codebook: Dict[str, Any], mel: torch.Tens
 
 def train_step(state: DVAETrainState, mel: torch.Tensor, cfg: VQVAEConfig, optimizer: AdamW,
                tc: DVAETrainConfig, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None
+               noise: Optional[torch.Tensor] = None, group=None
                ) -> Tuple[DVAETrainState, Dict[str, torch.Tensor]]:
     """One step: gradients on the encoder and decoder, the EMA on the
     codebook, the usage histogram, and every `rebalance_every` steps the
     rebalance, chosen on the device.  With rebalancing on, each step takes
-    a normal draw [D, N]: `noise` if given, else from `generator`."""
+    a normal draw [D, N]: `noise` if given, else from `generator`.
+
+    With a process `group` of equal shards the step is the global batch's:
+    the gradients and the loss terms averaged and the code counts summed
+    (one collective), the EMA's statistics summed (a second), the
+    discretization term of the loss from the summed counts."""
     grad_params = {k: v for k, v in state.params.items() if k != "codebook"}
     codebook = state.params["codebook"]
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), grad_params)
@@ -117,11 +132,22 @@ def train_step(state: DVAETrainState, mel: torch.Tensor, cfg: VQVAEConfig, optim
             loss.backward()
         grads = tree_map(lambda p: p.grad, leaves)
         with torch.no_grad():
+            codes = out["codes"]
+            counts = torch.bincount(codes.reshape(-1).long(), minlength=cfg.num_tokens).float()
+            terms = torch.stack([out["recon_loss"].detach(), out["commitment_loss"].detach()])
+            if group is not None:
+                n = torch.distributed.get_world_size(group)
+                grads, terms, counts = mesh.all_reduce_tree((grads, terms, counts), group=group)
+                grads = tree_map(lambda g: g / n, grads)
+                terms = terms / n
+                loss = terms[0] + tc.commitment_weight * terms[1]
+                if tc.discretization_weight > 0.0:
+                    loss = loss + tc.discretization_weight * dvae.discretization_loss(
+                        counts[None], dim=1, expected_variance=1.0 / cfg.num_tokens)
             new_params, opt_state = optimizer.step(grads, state.opt_state,
                                                    tree_map(torch.Tensor.detach, leaves))
-            codes = out["codes"]
-            codebook = dvae.ema_update(codebook, out["z"].detach(), codes, decay=tc.ema_decay)
-            counts = torch.bincount(codes.reshape(-1).long(), minlength=cfg.num_tokens).float()
+            codebook = dvae.ema_update(codebook, out["z"].detach(), codes, decay=tc.ema_decay,
+                                       group=group)
             usage = state.usage + counts
             step = state.step + 1
             n_reset = torch.zeros((), dtype=torch.int32, device=usage.device)
@@ -135,8 +161,8 @@ def train_step(state: DVAETrainState, mel: torch.Tensor, cfg: VQVAEConfig, optim
                 n_reset = torch.where(fire, n, n_reset)
             probs = counts / torch.clamp(counts.sum(), min=1.0)
             plogp = torch.where(probs > 0, probs * torch.log(probs), torch.zeros_like(probs))
-            metrics = {"loss": loss.detach(), "recon_loss": out["recon_loss"].detach(),
-                       "commitment_loss": out["commitment_loss"].detach(),
+            metrics = {"loss": loss.detach(), "recon_loss": terms[0],
+                       "commitment_loss": terms[1],
                        "codebook_perplexity": torch.exp(-plogp.sum()),
                        "codes_reset": n_reset.float()}
     return DVAETrainState({**new_params, "codebook": codebook}, opt_state, usage, step), metrics
@@ -167,25 +193,31 @@ def discover_mels(source: str) -> List[str]:
     return sorted(globlib.glob(source))
 
 
-def mel_window_batches(paths: List[str], batch: int, width: int,
-                       seed: int) -> Iterator[np.ndarray]:
-    """Endless [batch, 100, width] fp32 crops; short clips are tiled."""
+def mel_window_batches(paths: List[str], batch: int, width: int, seed: int,
+                       keep: Optional[slice] = None) -> Iterator[np.ndarray]:
+    """Endless [batch, 100, width] fp32 crops; short clips are tiled.  With
+    `keep` (a slice of rows) each batch is drawn whole, as without it, and
+    only those rows are read and returned: a rank's share of the global
+    batch (the other rows' files are mapped for their shapes alone)."""
     rng = np.random.default_rng(seed)
     assert paths, "no mel files found"
+    kept = range(batch)[keep] if keep is not None else range(batch)
     while True:
         rows = []
-        for i in rng.integers(0, len(paths), size=batch):
-            m = np.load(paths[int(i)])
+        for j, i in enumerate(rng.integers(0, len(paths), size=batch)):
+            m = np.load(paths[int(i)], mmap_mode=None if j in kept else "r")
             if m.ndim != 2:
                 m = m.reshape(m.shape[-2], m.shape[-1])
             if m.shape[0] != 100 and m.shape[1] == 100:
                 m = m.T
             T = m.shape[1]
             if T < width:
-                m = np.tile(m, (1, -(-width // T)))
-                T = m.shape[1]
+                T *= -(-width // T)
+                if j in kept:
+                    m = np.tile(m, (1, T // m.shape[1]))
             t0 = int(rng.integers(0, T - width + 1))
-            rows.append(m[:, t0:t0 + width])
+            if j in kept:
+                rows.append(m[:, t0:t0 + width])
         yield np.stack(rows).astype(np.float32)
 
 
@@ -198,27 +230,34 @@ def train_dvae(cfg: VQVAEConfig, tc: DVAETrainConfig, mel_paths: List[str], out_
     """`tc.steps` steps of `tc.batch_size` windows from random weights (seed
     `tc.seed`) or from `params` (a numpy tree, as `load_dvae_checkpoint`
     gives); writes `dvae_step_{n}` every `checkpoint_every` steps and at the
-    end."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    end.  In a process group the global batch is max(batch_size // world,
+    1) x world windows (JAX's on a mesh of that many devices), rank r
+    training on its r-th share, and rank 0's initial state reaches every
+    rank."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_dvae: CUDA is not available; pass device='cpu' to train "
                            "on the CPU")
+    device = mesh.initialize_distributed(device)
+    group, world, rank = mesh.data_group(), mesh.world(), mesh.rank()
+    per_rank = max(tc.batch_size // world, 1) if group is not None else tc.batch_size
     optimizer = make_optimizer(tc)
-    state = init_state(cfg, optimizer, torch.Generator(device=device).manual_seed(tc.seed),
-                       params, device)
+    state = mesh.broadcast_tree(init_state(
+        cfg, optimizer, torch.Generator(device=device).manual_seed(tc.seed), params, device))
     generator = torch.Generator(device=device).manual_seed(tc.seed + 1)
-    batches = mel_window_batches(mel_paths, tc.batch_size, tc.mel_width, tc.seed)
+    keep = slice(rank * per_rank, (rank + 1) * per_rank) if group is not None else None
+    batches = mel_window_batches(mel_paths, per_rank * world, tc.mel_width, tc.seed, keep)
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     for i in range(tc.steps):
         mel = torch.from_numpy(next(batches)).to(device, non_blocking=True)
-        state, metrics = train_step(state, mel, cfg, optimizer, tc, generator)
+        state, metrics = train_step(state, mel, cfg, optimizer, tc, generator, group=group)
         if (i + 1) % tc.log_every == 0 or i + 1 == tc.steps:
             m = {k: float(v) for k, v in metrics.items()}
-            rate = (i + 1) * tc.batch_size / (time.perf_counter() - t0)
-            print(f"[dvae {i + 1}/{tc.steps}] loss={m['loss']:.4f} "
-                  f"recon={m['recon_loss']:.4f} ppl={m['codebook_perplexity']:.1f} "
-                  f"({rate:.1f} windows/s)")
+            rate = (i + 1) * per_rank * world / (time.perf_counter() - t0)
+            if mesh.is_main():
+                print(f"[dvae {i + 1}/{tc.steps}] loss={m['loss']:.4f} "
+                      f"recon={m['recon_loss']:.4f} ppl={m['codebook_perplexity']:.1f} "
+                      f"({rate:.1f} windows/s)")
             if writer is not None:
                 for k, v in m.items():
                     writer.add_scalar(f"dvae/{k}", v, i + 1)
@@ -226,10 +265,13 @@ def train_dvae(cfg: VQVAEConfig, tc: DVAETrainConfig, mel_paths: List[str], out_
             _save(state, out_dir, i + 1)
     if not (tc.checkpoint_every and tc.steps % tc.checkpoint_every == 0):
         _save(state, out_dir, tc.steps)
+    mesh.barrier()
     return state
 
 
 def _save(state: DVAETrainState, out_dir: str, step: int) -> None:
+    if not mesh.is_main():
+        return
     path = os.path.join(out_dir, f"dvae_step_{step}")
     ckpt_io.save_pytree(path, {"params": state.params, "step": step})
     print(f"[dvae ckpt] step {step} -> {path}")
@@ -267,11 +309,14 @@ def main(argv=None) -> None:
         cfg_path = os.path.join(args.model_dir, "config.yaml")
         if os.path.exists(cfg_path):
             cfg = Config.load(cfg_path).vqvae
+    device = mesh.initialize_distributed(args.device)
     paths = discover_mels(args.mels)
-    print(f"[dvae] {len(paths)} mel files")
+    if mesh.is_main():
+        print(f"[dvae] {len(paths)} mel files")
     params = ckpt_io.load_dvae_checkpoint(args.init, cfg) if args.init else None
-    train_dvae(cfg, tc, paths, args.out, device=args.device, params=params)
+    train_dvae(cfg, tc, paths, args.out, device=device, params=params)
 
 
 if __name__ == "__main__":
     main()
+    mesh.shutdown()

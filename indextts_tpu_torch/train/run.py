@@ -1,7 +1,20 @@
-"""LoRA fine-tuning entry point on one device (counterpart of
-indextts_tpu/train/run.py, without its data mesh).
+"""LoRA fine-tuning entry point, on one device or data-parallel across
+cards (counterpart of indextts_tpu/train/run.py).
 
     python -m indextts_tpu_torch.train.run --config CONFIG --model_dir DIR
+    python -m torch.distributed.run --nproc_per_node N \
+        -m indextts_tpu_torch.train.run --config CONFIG --model_dir DIR
+
+Under the launcher each rank is one card (NCCL; gloo with `--device cpu`),
+as each of JAX's controllers drives its own devices in its multi-process
+branch: the micro-batch is a multiple of the world, the loaders are
+sharded by rank, every rank pads its rows to its own widths (the step
+agrees on the condition mels' width, which the conditioning encoder sees),
+and the step reduces over the world (train/trainer.py).
+Validation combines each rank's (sum, count) into one mean on every rank.
+Only rank 0 writes TensorBoard, checkpoints, the `.pth` exports and
+config_finetuned.yaml, and a barrier stands before anything that reads
+them; `--resume` loads the same checkpoint on every rank.
 
 The reference trainer's recipe (train.py:846-1025): epochs, micro-batches
 of batch_size / gradient_accumulation_steps, per-epoch validation, early
@@ -28,6 +41,7 @@ from indextts_tpu_torch.config import Config
 from indextts_tpu_torch.data.dataset import DataLoader, load_finetune_datasets
 from indextts_tpu_torch.io import checkpoint, export, from_jax
 from indextts_tpu_torch.models import unified_voice as uv
+from indextts_tpu_torch.parallel import mesh
 from indextts_tpu_torch.train import lora as lora_lib
 from indextts_tpu_torch.train import trainer
 from indextts_tpu_torch.train.lora import tree_map
@@ -52,11 +66,14 @@ class Trainer:
         """Takes a `Config` object (no YAML needed).  The frozen base is
         `model_dir`/`cfg.gpt_checkpoint` (random weights from a fixed seed if
         it is missing); the adapters start from PEFT's init on the train
-        seed."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        seed.  In a process group (parallel/mesh.py) rank 0's weights reach
+        every rank."""
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: CUDA is not available; pass device='cpu' to "
                                "train on the CPU")
+        self.device = mesh.initialize_distributed(device)
+        self.group = mesh.data_group()
+        self.rank, self.world, self.is_main = mesh.rank(), mesh.world(), mesh.is_main()
         self.cfg = cfg
         self.tc = cfg.train
         self.model_dir = model_dir
@@ -70,7 +87,8 @@ class Trainer:
         except ImportError:
             pass
         else:
-            self.writer = SummaryWriter(log_dir)
+            if self.is_main:
+                self.writer = SummaryWriter(log_dir)
 
         # the frozen base model
         gpt_path = os.path.join(model_dir, cfg.gpt_checkpoint)
@@ -94,15 +112,19 @@ class Trainer:
         bpe = os.path.join(model_dir, cfg.dataset.bpe_model)
         self.train_ds, self.valid_ds = load_finetune_datasets(cfg, bpe)
         # gradient accumulation (config.yaml:213): the effective batch is
-        # batch_size, reached as k micro-batches of batch_size / k
+        # batch_size, reached as k micro-batches of batch_size / k, each a
+        # multiple of the world; each rank loads its shard of every one
         self.accum_steps = max(1, int(self.tc.gradient_accumulation_steps))
+        per_step_batch = max(self.tc.batch_size // self.accum_steps, self.world)
+        per_step_batch -= per_step_batch % self.world
+        shards = dict(num_shards=self.world, shard_index=self.rank)
         self.loader = DataLoader(
-            self.train_ds, max(self.tc.batch_size // self.accum_steps, 1), seed=self.tc.seed,
+            self.train_ds, per_step_batch // self.world, seed=self.tc.seed,
             cross_speaker_ratio=self.tc.cross_speaker_ratio,
-            text_length_weights=self.tc.text_length_weights)
+            text_length_weights=self.tc.text_length_weights, **shards)
         self.valid_loader = DataLoader(
             self.valid_ds, min(self.tc.valid_batch_size, max(1, len(self.valid_ds))),
-            seed=self.tc.seed, shuffle=False, drop_last=False)
+            seed=self.tc.seed, shuffle=False, drop_last=False, **shards)
 
         self.steps_per_epoch = min(len(self.loader), self.tc.max_steps_per_epoch)
         # schedules tick per optimizer update, not per micro-step
@@ -111,6 +133,7 @@ class Trainer:
         self.state = trainer.init_train_state(
             torch.Generator(device=self.device).manual_seed(self.tc.seed), cfg.gpt,
             self.tc.lora, self.optimizer, self.device)
+        self.base_params, self.state = mesh.broadcast_tree((self.base_params, self.state))
         self.start_epoch = 0
         self.best_val = float("inf")
         self.patience_left = self.tc.early_stopping_patience
@@ -121,8 +144,14 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int, val_loss: float) -> None:
         """The resume directory, the merged directory, the .pth twins and
-        config_finetuned.yaml.  best_val and patience_left are the running
-        early-stop state, updated before this call."""
+        config_finetuned.yaml, written by rank 0 while the others wait.
+        best_val and patience_left are the running early-stop state, updated
+        before this call."""
+        if self.is_main:
+            self._save_checkpoint(epoch, val_loss)
+        mesh.barrier()
+
+    def _save_checkpoint(self, epoch: int, val_loss: float) -> None:
         checkpoint.save_pytree(os.path.join(self.out_dir, f"checkpoint_epoch_{epoch}"), {
             "lora_params": self.state.lora_params,
             "opt_state": self.state.opt_state,
@@ -159,7 +188,8 @@ class Trainer:
         return self._speaker_extras_cache
 
     def try_resume(self) -> None:
-        """Resume from the newest checkpoint_epoch_* (run_train.sh:100-123)."""
+        """Resume from the newest checkpoint_epoch_* (run_train.sh:100-123),
+        the same one on every rank."""
         if not os.path.isdir(self.out_dir):
             return
         epochs = [int(n.rsplit("_", 1)[1]) for n in os.listdir(self.out_dir)
@@ -179,7 +209,8 @@ class Trainer:
         self.start_epoch = int(ckpt["epoch"]) + 1
         self.best_val = float(ckpt["best_val"])
         self.patience_left = int(ckpt["patience_left"])
-        print(f"[resume] from epoch {latest} (best_val={self.best_val:.4f})")
+        if self.is_main:
+            print(f"[resume] from epoch {latest} (best_val={self.best_val:.4f})")
 
     # -- loops ------------------------------------------------------------
 
@@ -200,14 +231,17 @@ class Trainer:
             cond_lengths=dev(batch["cond_lengths"]))
 
     def validate(self) -> float:
-        """Mean per-sample weighted CE over every validation sample."""
+        """Mean per-sample weighted CE over every validation sample; in a
+        process group over every rank's shard (a rank holds whole rows, so no
+        row is repeated to fill a device), the same mean on every rank."""
         losses: List[float] = []
         for batch in self.valid_loader:
             per_sample = trainer.eval_step_per_sample(
                 self.state.lora_params, self.base_params, self._device_batch(batch),
-                self.cfg.gpt, self.tc.lora, self.tc.text_weight)
+                self.cfg.gpt, self.tc.lora, self.tc.text_weight, self.group)
             losses.extend(per_sample.cpu().tolist())
-        return float(np.mean(losses)) if losses else float("inf")
+        total, count = mesh.all_reduce_host([np.sum(losses), len(losses)], "sum", self.group)
+        return total / count if count else float("inf")
 
     def train(self) -> None:
         gen = torch.Generator(device=self.device)
@@ -221,11 +255,12 @@ class Trainer:
             for step, batch in enumerate(self.loader):
                 if step >= self.tc.max_steps_per_epoch:
                     break
+                # the same seed on every rank: one CFG-dropout draw for all
                 gen.manual_seed(_step_seed(self.tc.seed, host_step))
                 self.state, metrics = trainer.train_step(
                     self.state, self.base_params, self._device_batch(batch), self.cfg.gpt,
                     self.tc.lora, self.optimizer, self.tc.text_weight,
-                    self.tc.cfg_dropout_ratio, gen)
+                    self.tc.cfg_dropout_ratio, gen, group=self.group)
                 host_step += 1
                 metrics_buf.append(metrics)   # fetched at the TB points and epoch end
                 if self.writer and step % 10 == 0:
@@ -242,9 +277,10 @@ class Trainer:
             mm = _mean_metrics(metrics_buf)
             val_loss = self.validate()
             dt = time.perf_counter() - t_epoch
-            print(f"[epoch {epoch}] loss={mm['loss']:.4f} mel={mm['loss_mel']:.4f} "
-                  f"text={mm['loss_text']:.4f} acc1={mm['acc_1']:.1f}% val={val_loss:.4f} "
-                  f"({dt:.1f}s, {len(metrics_buf) / dt:.2f} steps/s)")
+            if self.is_main:
+                print(f"[epoch {epoch}] loss={mm['loss']:.4f} mel={mm['loss_mel']:.4f} "
+                      f"text={mm['loss_text']:.4f} acc1={mm['acc_1']:.1f}% "
+                      f"val={val_loss:.4f} ({dt:.1f}s, {len(metrics_buf) / dt:.2f} steps/s)")
             if self.writer:
                 self.writer.add_scalar("val/loss", val_loss, epoch)
             if val_loss < self.best_val:
@@ -254,10 +290,12 @@ class Trainer:
                 self.patience_left -= 1
             self.save_checkpoint(epoch, val_loss)
             if self.patience_left < 0:
-                print(f"[early-stop] no val improvement (best {self.best_val:.4f})")
+                if self.is_main:
+                    print(f"[early-stop] no val improvement (best {self.best_val:.4f})")
                 break
         if self._last_merged is not None:   # the final inference artifact (train.py:967)
             self._export_pth("gpt_finetuned.pth", self._last_merged)
+        mesh.barrier()
         self.close()
 
     def close(self) -> None:
@@ -276,7 +314,8 @@ def _structure(tree):
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description="LoRA fine-tune on one device")
+    p = argparse.ArgumentParser(description="LoRA fine-tune, on one device or one rank of "
+                                            "torch.distributed.run")
     p.add_argument("--config", default="finetune_models/config.yaml")
     p.add_argument("--model_dir", default="finetune_models")
     p.add_argument("--run_name", default=None)
@@ -295,3 +334,4 @@ def main(argv=None) -> None:
 
 if __name__ == "__main__":
     main()
+    mesh.shutdown()

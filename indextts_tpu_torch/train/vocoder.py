@@ -1,8 +1,9 @@
-"""BigVGAN adversarial fine-tuning on one device (counterpart of
-indextts_tpu/train/vocoder.py, without its data mesh).
+"""BigVGAN adversarial fine-tuning, on one device or data-parallel across
+cards (counterpart of indextts_tpu/train/vocoder.py).
 
     python -m indextts_tpu_torch.train.vocoder --processed DIR --model_dir DIR
     python -m indextts_tpu_torch.train.vocoder --synthetic [--device cpu]
+    python -m torch.distributed.run --nproc_per_node N -m indextts_tpu_torch.train.vocoder ...
 
 The reference ships the discriminators and GAN losses
 (indextts/BigVGAN/models.py:317-453) but no vocoder training script; this is
@@ -21,6 +22,15 @@ explicit state (train/optim.AdamW).  Every anti-aliased activation of the
 generator runs K1 forward and K1b backward on the card
 (ops/cuda/anti_alias.py).  Convolutions run in fp32 with TF32 off.
 
+Under the launcher (parallel/mesh.py) the batch of `batch_size` rows runs
+on n_use = gcd(batch_size, world) ranks, as JAX's run takes the largest
+sub-mesh the batch tiles: each of them draws the global batch and keeps its
+own rows; the ranks outside take no rows and join no gradient collective.
+A step has two reductions: the discriminators' gradients are averaged
+before their update, the generator's after its loss against the updated
+discriminators.  K1 and K1b run on every working rank's own card.  Rank 0
+writes the checkpoints.
+
 Data: batches of (latent [B, Tc, gpt_dim], mel_ref [B, Tm, 100], wav
 [B, 1, Tc * 1024]).  `latent_batches` builds them from an extraction output
 directory (data/extract.py) and a GPT; `synthetic_batches` gives random
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -44,6 +55,7 @@ from indextts_tpu_torch.io import from_jax
 from indextts_tpu_torch.models import bigvgan
 from indextts_tpu_torch.models import discriminators as disc_lib
 from indextts_tpu_torch.models.dvae import no_tf32
+from indextts_tpu_torch.parallel import mesh
 from indextts_tpu_torch.train.lora import tree_map
 from indextts_tpu_torch.train.optim import AdamW, exponential_decay, tree_leaves
 
@@ -157,11 +169,13 @@ def _grads(loss: torch.Tensor, leaves):
 
 
 def train_step(state: VocoderTrainState, batch: VocoderBatch, d_aux, cfg: BigVGANConfig,
-               optimizer: AdamW, tc: VocoderTrainConfig
+               optimizer: AdamW, tc: VocoderTrainConfig, group=None
                ) -> Tuple[VocoderTrainState, Dict[str, torch.Tensor]]:
     """One alternating GAN step: the discriminators update on the generator's
     output (detached), then the generator against the updated
-    discriminators.  `batch` holds tensors on the state's device."""
+    discriminators.  `batch` holds tensors on the state's device.  With a
+    process `group` of equal shards each network's gradients are averaged
+    over it with its loss terms, in one collective each, before its update."""
     with no_tf32(), torch.enable_grad():
         gen = tree_map(lambda p: p.detach().requires_grad_(True), state.gen_params)
         gen_wav = bigvgan.forward(gen, batch.latent, batch.mel_ref, cfg)
@@ -176,6 +190,7 @@ def train_step(state: VocoderTrainState, batch: VocoderBatch, d_aux, cfg: BigVGA
         g_scores, _ = disc_lib.discriminators_forward(dp, gen_wav.detach())
         ld = disc_lib.discriminator_loss(r_scores, g_scores)
         d_grads = _grads(ld, d_leaves)
+        d_grads, ld = mesh.all_reduce_tree((d_grads, ld.detach()), "mean", group)
         with torch.no_grad():
             disc_floats, disc_opt = optimizer.step(d_grads, state.disc_opt,
                                                    [p.detach() for p in d_leaves])
@@ -191,6 +206,9 @@ def train_step(state: VocoderTrainState, batch: VocoderBatch, d_aux, cfg: BigVGA
                                            sample_rate=cfg.sampling_rate, scales=tc.mel_scales)
         lg = adv + tc.feature_weight * feat + tc.mel_weight * mel
         g_grads = _grads(lg, gen)
+        g_grads, parts = mesh.all_reduce_tree(
+            (g_grads, torch.stack([lg, adv, feat, mel]).detach()), "mean", group)
+        lg, adv, feat, mel = parts.unbind()
         with torch.no_grad():
             gen_params, gen_opt = optimizer.step(g_grads, state.gen_opt,
                                                  tree_map(torch.Tensor.detach, gen))
@@ -308,13 +326,17 @@ def synthetic_batches(cfg: BigVGANConfig, tc: VocoderTrainConfig,
             wav=np.tanh(rng.standard_normal((B, 1, W * upsample))).astype(np.float32))
 
 
-def to_device(batch: VocoderBatch, batch_size: int, device) -> VocoderBatch:
-    """A numpy batch on `device`, tiled (or cut) to `batch_size` rows."""
+def to_device(batch: VocoderBatch, batch_size: int, device,
+              rows: Optional[slice] = None) -> VocoderBatch:
+    """A numpy batch on `device`, tiled (or cut) to `batch_size` rows, and
+    of those only `rows` where given (a rank's share)."""
     def fit(x):
         x = np.asarray(x)
         if x.shape[0] != batch_size:
             reps = -(-batch_size // x.shape[0])
             x = np.tile(x, (reps,) + (1,) * (x.ndim - 1))[:batch_size]
+        if rows is not None:
+            x = x[rows]
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
 
     return VocoderBatch(*(fit(x) for x in batch))
@@ -323,27 +345,44 @@ def to_device(batch: VocoderBatch, batch_size: int, device) -> VocoderBatch:
 def train_vocoder(cfg: BigVGANConfig, tc: VocoderTrainConfig, batches: Iterator[VocoderBatch],
                   out_dir: str, gen_params: Any = None, writer=None,
                   device="cuda") -> VocoderTrainState:
-    """`tc.steps` steps on one device from `gen_params` (a numpy tree, as
+    """`tc.steps` steps from `gen_params` (a numpy tree, as
     `load_bigvgan_checkpoint` gives) or fresh weights (seed `tc.seed`);
-    writes `vocoder_step_{n}` every `checkpoint_every` steps and at the end."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    writes `vocoder_step_{n}` every `checkpoint_every` steps and at the end.
+    In a process group `batches` yields the global batch on every rank and
+    the first n_use = gcd(batch_size, world) ranks train on their shares
+    from rank 0's initial state; a rank outside them returns that state at
+    once (waiting for the others could outlast the group's timeout)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_vocoder: CUDA is not available; pass device='cpu' to train "
                            "on the CPU")
+    device = mesh.initialize_distributed(device)
+    world, rank = mesh.world(), mesh.rank()
+    n_use = math.gcd(tc.batch_size, world)
+    if n_use < world and mesh.is_main():
+        # the batch does not tile the world: the largest group it tiles
+        print(f"[vocoder] batch {tc.batch_size} on {n_use}/{world} ranks")
+    group = mesh.subgroup(n_use)
+    per_rank = tc.batch_size // n_use
+    rows = slice(rank * per_rank, (rank + 1) * per_rank) if group is not None else None
     optimizer = make_optimizer(tc)
     state, d_aux = init_state(torch.Generator(device=device).manual_seed(tc.seed), cfg,
                               optimizer, gen_params, tc.periods, tc.resolutions,
                               device=device)
+    state = mesh.broadcast_tree(state)
+    if rank >= n_use:
+        return state
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     for i in range(tc.steps):
-        state, metrics = train_step(state, to_device(next(batches), tc.batch_size, device),
-                                    d_aux, cfg, optimizer, tc)
+        state, metrics = train_step(state, to_device(next(batches), tc.batch_size, device, rows),
+                                    d_aux, cfg, optimizer, tc, group)
         if (i + 1) % tc.log_every == 0 or i + 1 == tc.steps:
             m = {k: float(v) for k, v in metrics.items()}
             rate = (i + 1) * tc.batch_size / (time.perf_counter() - t0)
-            print(f"[vocoder {i + 1}/{tc.steps}] D={m['disc_loss']:.3f} "
-                  f"G={m['gen_loss']:.3f} mel={m['gen_mel']:.3f} ({rate:.1f} samples/s)")
+            if mesh.is_main():
+                print(f"[vocoder {i + 1}/{tc.steps}] D={m['disc_loss']:.3f} "
+                      f"G={m['gen_loss']:.3f} mel={m['gen_mel']:.3f} "
+                      f"({rate:.1f} samples/s)")
             if writer is not None:
                 for k, v in m.items():
                     writer.add_scalar(f"vocoder/{k}", v, i + 1)
@@ -351,10 +390,13 @@ def train_vocoder(cfg: BigVGANConfig, tc: VocoderTrainConfig, batches: Iterator[
             _save(state, d_aux, out_dir, i + 1)
     if not (tc.checkpoint_every and tc.steps % tc.checkpoint_every == 0):
         _save(state, d_aux, out_dir, tc.steps)
+    mesh.barrier(group)
     return state
 
 
 def _save(state: VocoderTrainState, d_aux, out_dir: str, step: int) -> None:
+    if not mesh.is_main():
+        return
     path = os.path.join(out_dir, f"vocoder_step_{step}")
     ckpt_io.save_pytree(path, {"gen_params": state.gen_params,
                                "disc_params": merge_static(state.disc_floats, d_aux),
@@ -383,13 +425,14 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from indextts_tpu_torch.config import Config
 
+    device = mesh.initialize_distributed(args.device)
     cfg_path = os.path.join(args.model_dir, "config.yaml")
     full_cfg = Config.load(cfg_path) if os.path.exists(cfg_path) else Config()
     cfg = full_cfg.bigvgan
     tc = VocoderTrainConfig(batch_size=args.batch, segment_codes=args.segment_codes,
                             steps=args.steps, lr=args.lr, seed=args.seed)
     if args.synthetic:
-        train_vocoder(cfg, tc, synthetic_batches(cfg, tc), args.out, device=args.device)
+        train_vocoder(cfg, tc, synthetic_batches(cfg, tc), args.out, device=device)
         return
     if not args.processed:
         raise SystemExit("--processed (extraction output directory) or --synthetic "
@@ -403,11 +446,12 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     tree, _ = ckpt_io.load_gpt_checkpoint(os.path.join(args.model_dir, full_cfg.gpt_checkpoint),
                                           full_cfg.gpt)
-    gpt_params = from_jax.gpt_params_from_numpy(tree, full_cfg.gpt, torch.float32, args.device)
+    gpt_params = from_jax.gpt_params_from_numpy(tree, full_cfg.gpt, torch.float32, device)
     tok = TextTokenizer(os.path.join(args.model_dir, full_cfg.dataset.bpe_model))
     batches = latent_batches(args.processed, gpt_params, full_cfg.gpt, tok, tc)
-    train_vocoder(cfg, tc, batches, args.out, gen_params, device=args.device)
+    train_vocoder(cfg, tc, batches, args.out, gen_params, device=device)
 
 
 if __name__ == "__main__":
     main()
+    mesh.shutdown()
