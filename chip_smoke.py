@@ -190,7 +190,7 @@
 
     python3 chip_smoke.py --dp 4
 
-runs only the data-parallel checks on a machine with four cards:
+runs only the multi-card checks on a machine with four cards:
 1. `create_batcher(dp=4)`, one pool per card through K4, against one
    pool's greedy codes on a small fp32 model (`tools.entry.pool_group_check`);
 2. the three trainers at full width, each rank a process on its own card
@@ -208,8 +208,41 @@ runs only the data-parallel checks on a machine with four cards:
 3. the LoRA Trainer's and the DVAE's CLIs unchanged under
    `torch.distributed.run --nproc_per_node 4` on the small model;
 4. `tools.entry.dryrun_multichip(4)`: the toy step over 4 NCCL ranks
-   against one card, and the pool group;
-then the card line and the last line.  Any failed check, or a rank that
+   against one card, the pool group, and the toy trunk's forward and
+   greedy decode over 2 tensor-parallel ranks against one (`tp_check`);
+5. tensor-parallel serving (`tensor_parallel`), the flagship on random
+   weights drawn on the CPU, rank 0 starting its followers itself:
+   - K3 bit-exact against its plain version on the head shards tensor
+     parallelism gives it, [24, 3, 10, 640, 64] and [24, 3, 5, 640, 64],
+     bf16 and fp8;
+   - fp32, TF32 off, at tp = 2 (cards 0-1) and tp = 4 against one card's
+     eager decodes on the same weights: greedy 64 codes, equal up to the
+     first step whose one-card top-2 logit margin is below TP_EPS, with the
+     step-0 logits' max |delta|; and greedy beam-3 under reorder="pallas"
+     (K3 once a step on every rank) against one card's lineage decode,
+     equal unless one card's decode met a near tie (a gap below TP_EPS
+     among a step's 7 best candidates); the rules stated before the run;
+   - at tp = 4, bf16, `infer` at the default beam-3, a sampling `infer`
+     (its RTF), a guided `infer`, an `infer_fast` of two buckets, an
+     `infer_stream` and a beam-3 decode under reorder="pallas" (the
+     engine's own options, through its `_on_ranks`), each with every
+     rank's counts at 0 just before it and read just after (the counters
+     read on each rank by `tp_rank_counts`): 48 all-reduces a decode step
+     and a re-forward, K1 109 times a vocode on rank 0 alone, K3 once a
+     step on every rank under "pallas", K2 and K4 never, a launches line a
+     rank; every rank's codes equal to rank 0's (checked in each call);
+     each rank's weights its shard of the same tree by checksum, its trunk
+     bytes 1/4 of the whole; peak memory a rank;
+   - ms a decode step (one sampling row; beam-3) at tp = 1 (the row also
+     through K2), 2 and 4, and the all-reduces' ms a step by CUDA events
+     (`tp_rank_time_all_reduces`);
+   - `TTSService(tp=4)` answering two concurrent /tts requests over a
+     socket, and the CLI with `--tp 2` as a command;
+   - in a process of its own, bounded: a tp = 2 engine whose follower is
+     stopped mid-decode (it hangs) and then one whose follower is killed,
+     rank 0 raising within its deadline each time (`tp_faults`);
+then the card line and the last line.  `--dp 4 --only-tp` runs phase 5
+alone.  Any failed check, or a rank that
 dies or outlives its limit, exits non-zero before that line.
 """
 
@@ -4780,6 +4813,604 @@ def dp_clis(torch, dp: int, out_dir: str) -> None:
         raise SmokeFailure(f"CLIs under torchrun: {lora_files}, {dvae_files}")
 
 
+TP_EPS = 1e-3               # fp32: codes may part only where one card's margin is below this
+TP_STEP_LENS = (16, 64)     # the two decode budgets whose difference gives ms a step
+TP_GREEDY = dict(num_beams=1, do_sample=False, repetition_penalty=1.0, max_mel_tokens=64)
+TP_BEAM = dict(num_beams=3, do_sample=False, repetition_penalty=1.0, max_mel_tokens=64)
+TP_FAULT_DEADLINE_S = 20.0  # parallel/tp.TIMEOUT_S in the fault cases' process
+TP_FAULT_LIMIT_S = 240.0    # the fault cases' process, all of it
+
+
+# -- run on every rank of an engine, through its _on_ranks("chip_smoke:...") --
+
+def tp_rank_counts(engine, reset: bool = False) -> dict:
+    """This rank's counts: its group's all-reduces and agreements, the
+    launches of K1 to K4, its trunk bytes and its card's peak memory;
+    `reset` zeroes the counts and the peak after reading them."""
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import anti_alias, decode_layer, permute, pool_trunk
+    from indextts_tpu_torch.parallel import mesh
+
+    kernels = {"K1": anti_alias.fused_anti_alias_activation,
+               "K2": decode_layer.fused_decode_trunk_flat,
+               "K3": permute.permute_cache_rows, "K4": pool_trunk.fused_pool_step}
+    g = engine.tp_group
+    out = {"rank": engine.tp_rank, "device": str(engine.device),
+           "all_reduces": g.all_reduces if g else 0, "agreements": g.agreements if g else 0,
+           **{k: f.launches for k, f in kernels.items()},
+           "trunk_bytes": sum(t.numel() * t.element_size()
+                              for t in mesh._flatten(engine.gpt_params_batched["gpt"])[0]),
+           "peak_bytes": torch.cuda.max_memory_allocated(engine.device)}
+    if reset:
+        for f in kernels.values():
+            f.launches = 0
+        if g is not None:
+            g.all_reduces = g.agreements = 0
+        torch.cuda.reset_peak_memory_stats(engine.device)
+    return out
+
+
+def tp_rank_checksum(engine) -> int:
+    """This rank's checksum of the trunk shard it holds."""
+    from indextts_tpu_torch.parallel.multihost import tree_checksum
+
+    return tree_checksum(engine.gpt_params_batched["gpt"])
+
+
+def tp_rank_time_all_reduces(engine, on: bool) -> float:
+    """Time this rank's trunk all-reduces between CUDA events on its stream,
+    from each launch to its end (the wait for the other ranks included):
+    `on` wraps its group's `all_reduce` (on the instance, for this smoke
+    alone); off takes the wrapper away and returns the timed ms."""
+    import torch
+
+    g = engine.tp_group
+    if on:
+        events, plain = [], g.all_reduce
+
+        def timed(x):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain(x)
+            end.record()
+            events.append((start, end))
+            return x
+
+        g.all_reduce, g.smoke_events = timed, events
+        return 0.0
+    del g.all_reduce
+    events = g.__dict__.pop("smoke_events")
+    if events:
+        events[-1][1].synchronize()
+    return sum(s.elapsed_time(e) for s, e in events)
+
+
+def _tp_counts(tts, reset: bool = False) -> list:
+    """Every rank's `tp_rank_counts`, by rank."""
+    return tts._on_ranks("chip_smoke:tp_rank_counts", reset)
+
+
+# -- the phase ---------------------------------------------------------------
+
+def _tp_engine(engine_mod, n: int, fp32: bool = False):
+    """The flagship at tp = n over cuda:0..n-1 (random weights drawn on the
+    CPU from torch seed 0, the same on every rank), or on one card at n = 1."""
+    prec = {"gpt": "fp32", "vocoder": "fp32"} if fp32 else None
+    t0 = time.perf_counter()
+    tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
+                              device="cuda", seed=0, precision_config=prec, tp=n)
+    return tts, time.perf_counter() - t0
+
+
+def _tp_ids(tts, text: str):
+    import numpy as np
+
+    sent = tts.tokenizer.split_sentences(tts.tokenizer.tokenize(text), 120)[0]
+    return [np.asarray(tts.tokenizer.convert_tokens_to_ids(sent), np.int32)]
+
+
+def _tp_cond(torch, tts):
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    g = tts.cfg.gpt
+    return torch.as_tensor(0.5 * rng.standard_normal((1, g.condition_num_latent, g.model_dim)),
+                           dtype=tts.gpt_dtype, device=tts.device)
+
+
+def _tp_beam_pallas(tts, cond, ids, gen: dict, generator=None):
+    """A beam decode on every rank with the engine's own options for `gen`
+    and reorder="pallas" (K3 reorders each rank's head shard of the cache;
+    the engine's beam decode itself uses the lineage map)."""
+    beam, kw = tts._decode_options(len(ids), dict(gen))
+    return tts._on_ranks("_decode_rows", cond, ids, generator, beam,
+                         dict(kw, reorder="pallas"))[0]
+
+
+def _step_ms(torch, tts, cond, ids, **gen) -> dict:
+    """Wall ms a decode step: two decodes (budgets TP_STEP_LENS) after a
+    warm-up, the difference of their times over the difference of their
+    steps; each ends in a host read of the codes."""
+    tts._decode_bucket(cond, ids, torch.Generator(device="cuda").manual_seed(0),
+                       dict(gen, max_mel_tokens=8))
+    runs = []
+    for n in TP_STEP_LENS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, steps = tts._decode_bucket(cond, ids, torch.Generator(device="cuda").manual_seed(0),
+                                         dict(gen, max_mel_tokens=n))
+        runs.append((time.perf_counter() - t0, steps))
+    (t_a, s_a), (t_b, s_b) = runs
+    return {"ms": (t_b - t_a) / (s_b - s_a) * 1e3 if s_b > s_a else None,
+            "steps": [s_a, s_b]}
+
+
+def tp_permute_checks(torch, permute) -> None:
+    """K3 bit-exact against its plain version on the head shards that tensor
+    parallelism hands it: the flagship beam-3 suffix [24, 3, H/N, 640, 64]
+    at N = 2 (10 heads) and N = 4 (5 heads), bf16 and fp8, rows [2, 0, 0],
+    [0, 1, 2] and [1, 2, 0]."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    as_bytes = lambda t: t.view(torch.uint8)  # noqa: E731  (bit-exact, fp8 too)
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        for heads in (10, 5):
+            shape = (24, 3, heads, 640, 64)
+            k = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            v = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            ok, ek = torch.empty_like(k), torch.empty_like(v)
+            for rows_list in ([2, 0, 0], [0, 1, 2], [1, 2, 0]):
+                rows = torch.tensor(rows_list, dtype=torch.int32, device="cuda")
+                gk, gv = permute.permute_cache_rows(k, v, rows, ok, ek)
+                rk, rv = permute.permute_cache_rows_plain(k, v, rows)
+                torch.cuda.synchronize()
+                exact = (torch.equal(as_bytes(gk), as_bytes(rk))
+                         and torch.equal(as_bytes(gv), as_bytes(rv)))
+                check(f"K3 permute {str(dtype)[6:]} {list(shape)} rows={rows_list} "
+                      f"(the head shard of tp={20 // heads})", 0.0 if exact else float("inf"),
+                      0.0, tolerance="bit-exact")
+            del k, v, ok, ek
+    torch.cuda.empty_cache()
+
+
+def _codes_rule(want, got, margins) -> dict:
+    """Codes against one card's: equal, or parted where one card's margin
+    (from `margins`, one a step) fell below TP_EPS at or before the first
+    difference."""
+    import numpy as np
+
+    diff = np.nonzero(want != got)[0]
+    first = int(diff[0]) if diff.size else None
+    near_tie = first is not None and float(np.min(margins[:first + 1])) < TP_EPS
+    return {"codes_equal": first is None, "first_difference": first,
+            "covered_by_near_tie": near_tie, "min_margin": float(np.min(margins)),
+            "ok": first is None or near_tie}
+
+
+def tp_greedy_fp32(torch, engine_mod, n: int, ref: dict) -> dict:
+    """fp32 (TF32 off) decodes at full width over n cards against one card's
+    eager decodes on the same weights (`tp_reference_fp32`):
+      - greedy: codes equal up to and including the first step whose
+        one-card top-2 logit margin is below TP_EPS; the step-0 logits'
+        max |delta| reported;
+      - greedy beam-3 under reorder="pallas" (K3 on every rank, once a
+        step) against one card's lineage decode: codes equal, or some step
+        of one card's decode had a near tie (a gap below TP_EPS among its
+        2*3 + 1 best candidates; a swap there can change the winning
+        sequence anywhere, so the rule is not tied to a position)."""
+    import numpy as np
+
+    tts, build_s = _tp_engine(engine_mod, n, fp32=True)
+    try:
+        ids, cond = ref["ids"], ref["cond"]
+        codes, lens, steps = tts._decode_bucket(cond, ids, None, dict(TP_GREEDY))
+        lat = tts._latents_batch_dev(cond, ids, ref["codes"], ref["lens"])
+        head = tts.gpt_params_batched["mel_head"]
+        logits = (lat[0].float() @ head["kernel"].float() + head["bias"].float()).cpu()
+        _tp_counts(tts, reset=True)
+        bcodes, blens, bsteps = _tp_beam_pallas(tts, cond, ids, TP_BEAM)
+        bcounts = _tp_counts(tts)
+    finally:
+        tts.close()
+    L = len(ref["codes"][0])
+    greedy = _codes_rule(ref["codes"][0], codes[0], ref["margins"][:L])
+    bdiff = np.nonzero(ref["beam_codes"][0] != bcodes[0])[0]
+    beam_tie = float(np.min(ref["beam_gaps"])) < TP_EPS
+    k3 = [c["K3"] for c in bcounts]
+    beam = {"codes_equal": bdiff.size == 0, "lengths_equal": bool((ref["beam_lens"] == blens).all()),
+            "differences": int(bdiff.size), "near_tie_in_reference": beam_tie,
+            "min_gap": float(np.min(ref["beam_gaps"])), "steps": bsteps,
+            "K3_by_rank": k3,
+            "ok": (bdiff.size == 0 or beam_tie) and k3 == [bsteps] * n and bsteps > 0}
+    return {"tp": n, "build_s": build_s, "steps": steps, **greedy,
+            "step0_logits_max_abs_delta": float((logits[0] - ref["logits"][0]).abs().max()),
+            "logits_max_abs_delta": float((logits[:L] - ref["logits"][:L]).abs().max()),
+            "beam3_pallas": beam, "ok": greedy["ok"] and beam["ok"]}
+
+
+def tp_reference_fp32(torch, engine_mod) -> dict:
+    """One card's fp32 eager decodes of the flagship on the TP engines'
+    weights (torch seed 0 on the CPU): greedy, with its teacher-forced
+    logits and their top-2 margins; and greedy beam-3 (lineage), with each
+    step's smallest gap between neighbours among the 2*3 + 1 best flat
+    scores (those that decide which beams are banked and which go on)."""
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.ops import beam as beam_lib
+
+    one, _ = _tp_engine(engine_mod, 1, fp32=True)
+    params = uv.init_params(one.cfg.gpt, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    one.gpt_params = one.gpt_params_batched = _moved(params, one.device)
+    del params
+    ids, cond = _tp_ids(one, TWO), _tp_cond(torch, one)
+    codes, lens, steps = one._decode_bucket(cond, ids, None,
+                                            dict(TP_GREEDY, use_fused_trunk=False))
+    lat = one._latents_batch_dev(cond, ids, codes, lens)
+    head = one.gpt_params_batched["mel_head"]
+    logits = (lat[0].float() @ head["kernel"].float() + head["bias"].float()).cpu()
+    top2 = logits.topk(2, dim=-1).values
+    gaps, plain = [], beam_lib.flat_scores
+
+    def watched(*args, **kwargs):
+        flat = plain(*args, **kwargs)
+        top = flat.float().topk(2 * TP_BEAM["num_beams"] + 1, dim=-1).values
+        gap = top[:, :-1] - top[:, 1:]
+        gaps.append(float(gap[torch.isfinite(gap)].min()))
+        return flat
+
+    beam_lib.flat_scores = watched
+    try:
+        bcodes, blens, bsteps = one._decode_bucket(cond, ids, None, dict(TP_BEAM))
+    finally:
+        beam_lib.flat_scores = plain
+    del one, lat
+    torch.cuda.empty_cache()
+    return {"ids": ids, "cond": cond, "codes": codes, "lens": lens, "steps": steps,
+            "logits": logits, "margins": (top2[:, 0] - top2[:, 1]).numpy(),
+            "beam_codes": bcodes, "beam_lens": blens, "beam_steps": bsteps, "beam_gaps": gaps}
+
+
+def _tp_expect(counts, stats, layers: int, sentences: int, buckets=None) -> list:
+    """What a path must have done on every rank: two trunk all-reduces a
+    layer (48 at 24 layers) a decode step and a re-forward, K1 109 times a
+    vocode on rank 0 alone, K2 and K4 never; returns the failures."""
+    L2 = 2 * layers
+    if buckets is None:
+        reduces, vocodes = L2 * (stats["decode_steps"] + 2 * sentences), sentences
+    else:
+        reduces = L2 * (sum(stats["bucket_steps"]) + 2 * len(buckets))
+        vocodes = len(buckets)
+    bad = []
+    for c in counts:
+        if c["all_reduces"] != reduces:
+            bad.append(f"rank {c['rank']}: {c['all_reduces']} all-reduces, not {reduces}")
+        if c["K2"] or c["K4"]:
+            bad.append(f"rank {c['rank']}: K2 {c['K2']} K4 {c['K4']}")
+        if c["K1"] != (K1_PER_VOCODE * vocodes if c["rank"] == 0 else 0):
+            bad.append(f"rank {c['rank']}: K1 {c['K1']} for {vocodes} vocodes")
+        if c["agreements"] != counts[0]["agreements"] or c["K3"] != counts[0]["K3"]:
+            bad.append(f"rank {c['rank']}: agreements {c['agreements']} K3 {c['K3']} against "
+                       f"rank 0's {counts[0]['agreements']} {counts[0]['K3']}")
+    return bad
+
+
+def _tp_line(name: str, n: int, counts, ok: bool, bad: list, **extra) -> dict:
+    line = {"phase": f"tensor parallel tp={n} bf16 {name}", **extra,
+            "launches_by_rank": [{k: c[k] for k in ("rank", "K1", "K2", "K3", "K4",
+                                                    "all_reduces", "agreements")}
+                                 for c in counts],
+            "codes_equal_on_every_rank": True, "ok": ok, "failures": bad}
+    emit(line)
+    return line
+
+
+def tp_paths_bf16(torch, engine_mod, httpd, prompt: str, n: int) -> dict:
+    """Every path at tp = n, bf16, full width: `infer` at the default beam-3,
+    a sampling `infer` (its RTF reported), a guided `infer`, an `infer_fast`
+    of two buckets, an `infer_stream`, and a beam-3 decode under
+    reorder="pallas" (K3 on every rank, once a step), each with the counts at
+    0 just before it and read just after on every rank (`_tp_expect`).  Then
+    the ranks' checksums against shards cut here from the same weights, the
+    trunk bytes a rank, peak memory, the decode-step and all-reduce timings,
+    and `TTSService(tp=n)` over this engine (`tp_service`), whose shutdown
+    closes it."""
+    from indextts_tpu_torch.models import unified_voice as uv
+    from indextts_tpu_torch.parallel import mesh, multihost, tp as tp_mod
+
+    tts, build_s = _tp_engine(engine_mod, n)
+    failed, lines = [], []
+    try:
+        two = dict(max_text_tokens_per_sentence=40)       # TWO as two sentences
+        runs = [("infer beam-3", "infer", dict(two, max_mel_tokens=48)),
+                ("infer sampling", "infer", dict(two, num_beams=1, max_mel_tokens=96)),
+                ("infer guided", "infer", dict(two, num_beams=1, cfg_scale=2.0,
+                                               max_mel_tokens=40)),
+                ("infer_fast two buckets", "infer_fast",
+                 dict(two, num_beams=1, sentences_bucket_max_size=1, max_mel_tokens=40)),
+                ("infer_stream", "infer_stream", dict(two, num_beams=1, max_mel_tokens=40))]
+        per_rank = [dict.fromkeys(("K1", "K2", "K3", "K4", "all_reduces"), 0) for _ in range(n)]
+        peak = [0] * n
+
+        def tally(counts):
+            for r, (acc, c) in enumerate(zip(per_rank, counts)):
+                for k in acc:
+                    acc[k] += c[k]
+                peak[r] = max(peak[r], c["peak_bytes"])
+
+        for name, method, gen in runs:
+            _tp_counts(tts, reset=True)
+            t0 = time.perf_counter()
+            if method == "infer_stream":
+                wav = [c for _, c in tts.infer_stream(prompt, TWO, seed=3, **gen)]
+                samples = sum(len(c) for c in wav)
+            else:
+                _, wav = getattr(tts, method)(prompt, TWO, None, seed=3, **gen)
+                samples = len(wav)
+            s = time.perf_counter() - t0
+            counts = _tp_counts(tts)
+            stats = tts.last_stats
+            bad = _tp_expect(counts, stats, tts.cfg.gpt.layers, len(stats["code_lens"]),
+                             stats.get("buckets") if method == "infer_fast" else None)
+            if len(stats["code_lens"]) != 2:
+                bad.append(f"{len(stats['code_lens'])} sentences, not 2")
+            ok = not bad and samples > 0
+            lines.append(_tp_line(name, n, counts, ok, bad, s=s, rtf=stats.get("rtf"),
+                                  code_lens=stats["code_lens"],
+                                  decode_steps=stats["decode_steps"]))
+            tally(counts)
+            if not ok:
+                failed.append(f"{name}: {bad}")
+        ids, cond = _tp_ids(tts, TWO), _tp_cond(torch, tts)
+        _tp_counts(tts, reset=True)
+        t0 = time.perf_counter()
+        _, lens, steps = _tp_beam_pallas(tts, cond, ids, dict(max_mel_tokens=48),
+                                         torch.Generator(device="cuda").manual_seed(3))
+        s = time.perf_counter() - t0
+        counts = _tp_counts(tts)
+        reduces = 2 * tts.cfg.gpt.layers * (steps + 1)
+        bad = [f"rank {c['rank']}: all-reduces {c['all_reduces']} (not {reduces}), K3 "
+               f"{c['K3']} (not {steps}), K1 {c['K1']} K2 {c['K2']} K4 {c['K4']}"
+               for c in counts if (c["all_reduces"], c["K3"], c["K1"], c["K2"], c["K4"])
+               != (reduces, steps, 0, 0, 0)]
+        ok = not bad and steps > 0
+        lines.append(_tp_line("beam-3 decode reorder=pallas", n, counts, ok, bad, s=s,
+                              code_lens=[int(x) for x in lens], decode_steps=steps))
+        tally(counts)
+        if not ok:
+            failed.append(f"beam-3 pallas: {bad}")
+        for r, acc in enumerate(per_rank):
+            emit({"launches": f"tp={n} rank {r} over the six paths", "device": f"cuda:{r}",
+                  **acc})
+        counts = _tp_counts(tts)
+        master = uv.init_params(tts.cfg.gpt, torch.Generator().manual_seed(0), torch.bfloat16,
+                                "cpu")["gpt"]
+        whole = sum(t.numel() * t.element_size() for t in mesh._flatten(master)[0])
+        want = [multihost.tree_checksum(tp_mod.shard_gpt_params(master, r, n)) for r in range(n)]
+        del master
+        got = tts._on_ranks("chip_smoke:tp_rank_checksum")
+        share = [c["trunk_bytes"] / whole for c in counts]
+        weights_ok = got == want and all(abs(x - 1 / n) < 0.01 for x in share)
+        if not weights_ok:
+            failed.append(f"checksums {got} against {want}, trunk shares {share}")
+        timing = {"row": _step_ms(torch, tts, cond, ids, num_beams=1),
+                  "beam3": _step_ms(torch, tts, cond, ids)}
+        tts._on_ranks("chip_smoke:tp_rank_time_all_reduces", True)
+        _tp_counts(tts, reset=True)
+        _, _, steps = tts._decode_bucket(cond, ids, torch.Generator(device="cuda").manual_seed(0),
+                                         dict(num_beams=1, max_mel_tokens=TP_STEP_LENS[1]))
+        reduce_ms = tts._on_ranks("chip_smoke:tp_rank_time_all_reduces", False)
+        timed = _tp_counts(tts)
+        emit({"phase": f"tensor parallel tp={n} bf16 weights and memory", "card": card_line(),
+              "build_s": build_s, "checksums_equal_rank0_shards": got == want,
+              "trunk_bytes_by_rank": [c["trunk_bytes"] for c in counts],
+              "trunk_bytes_whole": whole, "trunk_share_by_rank": share,
+              "peak_gib_by_rank_over_the_paths": [p / 2**30 for p in peak]})
+        emit({"phase": f"tensor parallel tp={n} bf16 decode step", "card": card_line(),
+              "row_ms": timing["row"], "beam3_ms": timing["beam3"],
+              "all_reduce_ms_per_step_by_rank": [ms / (steps + 1) for ms in reduce_ms],
+              "all_reduces_per_step_by_rank": [c["all_reduces"] / (steps + 1) for c in timed],
+              "steps": steps})
+        if not all(c["all_reduces"] == 2 * tts.cfg.gpt.layers * (steps + 1) for c in timed):
+            failed.append(f"all-reduces a step {[c['all_reduces'] for c in timed]}")
+        tp_service(httpd, tts, prompt, n)
+    finally:
+        tts.close()
+    if failed:
+        raise SmokeFailure(f"tensor parallel tp={n}: " + "; ".join(failed))
+    return {"lines": lines, "timing": timing}
+
+
+def tp_step_timing(torch, engine_mod, n: int) -> dict:
+    """Decode-step ms at tp = n (bf16, full width): one sampling row (at
+    n = 1 both eager and through K2) and beam-3."""
+    tts, build_s = _tp_engine(engine_mod, n)
+    try:
+        ids, cond = _tp_ids(tts, TWO), _tp_cond(torch, tts)
+        out = {"row": _step_ms(torch, tts, cond, ids, num_beams=1, use_fused_trunk=False),
+               "beam3": _step_ms(torch, tts, cond, ids)}
+        if n == 1:
+            out["row_k2"] = _step_ms(torch, tts, cond, ids, num_beams=1)
+        peak = [c["peak_bytes"] / 2**30 for c in _tp_counts(tts)]
+    finally:
+        tts.close()
+    emit({"phase": f"tensor parallel tp={n} bf16 decode step", "card": card_line(),
+          "build_s": build_s, **{f"{k}_ms": v for k, v in out.items()},
+          "peak_gib_by_rank": peak})
+    return out
+
+
+def tp_service(httpd, tts, prompt: str, n: int) -> None:
+    """`TTSService(tp=n)` over the engine `tts` answering two concurrent
+    /tts requests over a socket (one `infer`, one `infer_fast`); its
+    shutdown closes the engine and stops its followers."""
+    import concurrent.futures
+    import threading
+
+    t0 = time.perf_counter()
+    server = httpd.serve(None, os.path.join(HERE, "checkpoints_test"), host="127.0.0.1",
+                         port=0, tp=n, engine_instance=tts)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    followers = list(tts._tp.procs)
+    try:
+        bodies = [{"text": TWO, "audio_path": prompt, "seed": s, "num_beams": 1,
+                   "max_mel_tokens": 60, "mode": mode} for s, mode in ((1, "normal"),
+                                                                     (2, "fast"))]
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            answers = list(pool.map(lambda b: _http(port, "/tts", b), bodies))
+    finally:
+        server.shutdown()
+    served = [(a[0], a[2][:4] == b"RIFF", len(a[2]), a[3]) for a in answers]
+    ok = all(st == 200 and riff for st, riff, _, _ in served)
+    stopped = [p.poll() for p in followers]
+    emit({"phase": f"tensor parallel TTSService(tp={n}), two concurrent /tts",
+          "s": time.perf_counter() - t0, "answers_status_riff_bytes_s": served,
+          "followers_exit_codes": stopped, "ok": ok and stopped == [0] * len(followers)})
+    if not (ok and stopped == [0] * len(followers)):
+        raise SmokeFailure(f"TTSService(tp={n}): {served}, followers {stopped}")
+
+
+def tp_cli(prompt: str, out_dir: str) -> None:
+    """The CLI with `--tp 2` as a command: a wav, exit 0.  Its config is the
+    flagship with the mel positions cut to 128, which caps each sentence's
+    decode at 128 codes."""
+    sys.path.insert(0, HERE)
+    import dataclasses
+
+    from indextts_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, gpt=dataclasses.replace(cfg.gpt, max_mel_tokens=128))
+    cfg_path = os.path.join(out_dir, "tp_cli_config.yaml")
+    cfg.save(cfg_path)
+    out = os.path.join(out_dir, "tp_cli.wav")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "indextts_tpu_torch.cli", TWO, "-v", prompt,
+                          "-o", out, "-f", "-c", cfg_path,
+                          "--model_dir", os.path.join(HERE, "checkpoints_test"),
+                          "--tp", "2", "--num_beams", "1", "--seed", "5"], cwd=HERE,
+                         capture_output=True, text=True, timeout=300)
+    ok = cli.returncode == 0 and os.path.exists(out) and os.path.getsize(out) > 44
+    emit({"phase": "tensor parallel CLI --tp 2", "s": time.perf_counter() - t0,
+          "rc": cli.returncode, "tail": cli.stdout.strip().splitlines()[-3:], "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"CLI --tp 2: rc {cli.returncode}: {cli.stderr[-2000:]}")
+
+
+def tp_faults(torch, engine_mod) -> dict:
+    """Rank 0 of a tp = 2 engine on cards 0 and 1 (the flagship cut to 2
+    layers, to build quickly), its deadline TP_FAULT_DEADLINE_S, decoding
+    over and over: half a second after its first decode its follower is
+    stopped (SIGSTOP: alive and hung); then, in a new engine on the same
+    cards, killed.  Rank 0 must raise TPBroken each time, within the
+    deadline and 15 s more for the hang and within 15 s for the death; the
+    second engine decoding at all shows the cards serve again after an
+    aborted group.
+    Runs in a process of its own (`--tp-faults`), which the caller bounds."""
+    import dataclasses
+    import signal
+    import threading
+
+    from indextts_tpu_torch.config import Config
+    from indextts_tpu_torch.parallel import tp as tp_mod
+
+    tp_mod.TIMEOUT_S = TP_FAULT_DEADLINE_S
+    config = Config()
+    config = dataclasses.replace(config, gpt=dataclasses.replace(config.gpt, layers=2))
+    out = {"deadline_s": TP_FAULT_DEADLINE_S}
+    for case, sig, limit in (("hang", signal.SIGSTOP, TP_FAULT_DEADLINE_S + 15.0),
+                             ("death", signal.SIGKILL, 15.0)):
+        t0 = time.perf_counter()
+        tts = engine_mod.IndexTTS(cfg_path=None, model_dir=os.path.join(HERE, "checkpoints_test"),
+                                  device="cuda", seed=0, config=config, tp=2)
+        build_s = time.perf_counter() - t0
+        ids, cond = _tp_ids(tts, TWO), _tp_cond(torch, tts)
+        follower = tts._tp.procs[0]
+        sent = []
+
+        def fault():
+            sent.append(time.monotonic())
+            os.kill(follower.pid, sig)
+
+        timer = threading.Timer(0.5, fault)     # into the second decode
+        decodes, err = 0, None
+        try:
+            while not sent or time.monotonic() - sent[0] < limit + 30.0:
+                tts._decode_bucket(cond, ids, None, dict(num_beams=1, do_sample=False,
+                                                         max_mel_tokens=200))
+                decodes += 1
+                if decodes == 1:
+                    timer.start()
+        except Exception as e:   # noqa: BLE001 — reported
+            err = e
+        raised = time.monotonic()
+        timer.cancel()
+        tts.close()
+        took = raised - sent[0] if sent else None
+        ok = (isinstance(err, tp_mod.TPBroken) and took is not None and took <= limit
+              and follower.poll() is not None)
+        out[case] = {"build_s": build_s, "decodes_before_the_fault": decodes,
+                     "raised": type(err).__name__ if err else None,
+                     "s_from_signal_to_raise": took, "limit_s": limit,
+                     "why": str(err)[:400] if err else None,
+                     "follower_returncode": follower.poll(), "ok": ok}
+    out["ok"] = out["hang"]["ok"] and out["death"]["ok"]
+    return out
+
+
+def tp_fault_cases() -> None:
+    """`tp_faults` in a process of its own, bounded by TP_FAULT_LIMIT_S (its
+    followers ended with it), so that a fault that hangs fails the check
+    rather than the smoke."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--tp-faults"],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TP_FAULT_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise SmokeFailure(f"the tensor-parallel fault cases outlived {TP_FAULT_LIMIT_S} s: "
+                           f"{out[-2000:]} {err[-3000:]}") from None
+    lines = out.strip().splitlines()
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {"ok": False}
+    emit({"phase": "tensor parallel tp=2 a follower hung, then one killed, mid-decode",
+          "s": time.perf_counter() - t0, "rc": proc.returncode, **res})
+    if proc.returncode != 0 or not res.get("ok"):
+        raise SmokeFailure(f"tensor-parallel fault cases: rc {proc.returncode}: {res}: "
+                           f"{err[-3000:]}")
+
+
+def tensor_parallel(torch, engine_mod, httpd, permute, prompt: str, out_dir: str,
+                    n: int) -> None:
+    """The tensor-parallel phase of `--dp N` (N >= 2; tp = 2 on cards 0-1 and
+    tp = N): K3 on the head shards, fp32 greedy and beam-3 against one card,
+    every path at bf16 with its per-rank checks and the server, the
+    decode-step timings at tp = 1, 2 and N, the CLI, and a follower that
+    hangs or dies."""
+    t0 = time.perf_counter()
+    tp_permute_checks(torch, permute)
+    ref = tp_reference_fp32(torch, engine_mod)
+    emit({"phase": "tensor parallel fp32 one-card reference", "steps": ref["steps"],
+          "min_margin": float(ref["margins"][:64].min()), "beam_steps": ref["beam_steps"],
+          "beam_min_gap": float(min(ref["beam_gaps"])), "eps": TP_EPS})
+    for k in sorted({2, n}):
+        res = tp_greedy_fp32(torch, engine_mod, k, ref)
+        emit({"phase": f"tensor parallel tp={k} fp32 greedy and beam-3 against one card",
+              "card": card_line(), **res})
+        if not res["ok"]:
+            raise SmokeFailure(f"tp={k} fp32 codes: {res}")
+    tp_paths_bf16(torch, engine_mod, httpd, prompt, n)
+    for k in sorted({1, 2} - {n}):
+        tp_step_timing(torch, engine_mod, k)
+    tp_cli(prompt, out_dir)
+    tp_fault_cases()
+    emit({"phase": f"tensor parallel across {n} cards", "s": time.perf_counter() - t0})
+
+
 def main(argv=None) -> int:
     import argparse
     import shutil
@@ -4788,8 +5419,12 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dp", type=int, default=0,
-                   help="run only the data-parallel checks over this many cards")
+                   help="run only the multi-card checks (data and tensor parallel) over "
+                        "this many cards")
+    p.add_argument("--only-tp", action="store_true",
+                   help="with --dp: run only the tensor-parallel phase")
     p.add_argument("--vocoder-cli-rank", metavar="DIR", help=argparse.SUPPRESS)
+    p.add_argument("--tp-faults", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.vocoder_cli_rank:   # a rank under torch.distributed.run
@@ -4799,6 +5434,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.tp_faults:          # the fault cases' own process (tp_fault_cases)
+        sys.path.insert(0, HERE)
+        from indextts_tpu_torch import engine as engine_mod
+
+        emit(tp_faults(torch, engine_mod))
+        sys.stdout.flush()
+        os._exit(0)   # the aborted groups are left to the process's end
     if args.dp and torch.cuda.device_count() < args.dp:
         print(f"chip_smoke: --dp {args.dp} needs {args.dp} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
@@ -4831,12 +5473,16 @@ def main(argv=None) -> int:
     if args.dp:
         from indextts_tpu_torch.tools import entry
 
-        pool_group_agreement(torch, engine_mod, prompt, args.dp)
-        torch.cuda.empty_cache()
-        dp_training(torch, args.dp, out_dir)
-        t0 = time.perf_counter()
-        dry = entry.dryrun_multichip(args.dp)
-        emit({"phase": f"dryrun_multichip({args.dp})", "s": time.perf_counter() - t0, **dry})
+        if not args.only_tp:
+            pool_group_agreement(torch, engine_mod, prompt, args.dp)
+            torch.cuda.empty_cache()
+            dp_training(torch, args.dp, out_dir)
+            t0 = time.perf_counter()
+            dry = entry.dryrun_multichip(args.dp)
+            emit({"phase": f"dryrun_multichip({args.dp})", "s": time.perf_counter() - t0,
+                  **dry})
+            torch.cuda.empty_cache()
+        tensor_parallel(torch, engine_mod, httpd, permute, prompt, out_dir, args.dp)
         emit({"phase": "done", "s": time.perf_counter() - t_start})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,10 @@ def main(argv=None) -> int:
                         "one row)")
     p.add_argument("--cfg_scale", type=float, default=None,
                    help="classifier-free guidance scale (sampling mode; 1.0 = off)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel inference over N cards (the trunk's products "
+                        "split over cuda:0..N-1, one process a card; with -d cpu, N gloo "
+                        "processes)")
     args = p.parse_args(argv)
 
     if os.path.exists(args.output_path) and not args.force:
@@ -47,7 +51,14 @@ def main(argv=None) -> int:
     from indextts_tpu_torch.engine import IndexTTS
 
     tts = IndexTTS(cfg_path=cfg_path, model_dir=args.model_dir, is_fp16=args.fp16,
-                   device=args.device, seed=args.seed)
+                   device=args.device, seed=args.seed, tp=args.tp)
+    try:
+        return _synthesise(tts, args)
+    finally:
+        tts.close()
+
+
+def _synthesise(tts, args) -> int:
     gen = {}
     if args.num_beams is not None:
         gen["num_beams"] = args.num_beams

@@ -18,6 +18,18 @@ conditions for `speaker_id` requests.  The GPT weights may
 be quantized to int8 or int4 with an fp8 KV cache (precision keys as in the
 JAX engine).  Runs on `cuda` unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU it raises.
+
+`tp=N` serves one model across N cards by tensor parallelism
+(parallel/tp.py): this process is rank 0 on cuda:0 and starts ranks
+1..N-1, one process each on cuda:r (gloo processes on the CPU with
+`device="cpu"`).  Every rank reads the weights on the CPU and keeps its
+shard of the trunk (and the rest whole); the decodes, the latent
+re-forward and `load_numpy_params` run on every rank, one call at a time (the infer_fast and infer_stream workers wait for the re-forward
+rather than interleave their collectives with it).  Conditioning and the
+vocoder run on rank 0 alone, whose conditioning latents travel with each
+call.  The decode-trunk kernel (K2) and the pools are one-card paths and
+are off or refused under TP, as in the JAX engine.  `close()` stops the
+other ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from indextts_tpu_torch.models import unified_voice as uv
 from indextts_tpu_torch.ops import quantization
 from indextts_tpu_torch.ops.mel import MelSpectrogramFeatures
 from indextts_tpu_torch.ops.sampling import mix_seed
+from indextts_tpu_torch.parallel import tp as tp_mod
 from indextts_tpu_torch.serve.beam_pool import BeamPoolBatcher
 from indextts_tpu_torch.serve.scheduler import ContinuousBatcher, PoolGroup
 from indextts_tpu_torch.utils import audio as audio_io
@@ -256,7 +269,8 @@ class IndexTTS:
                  device: Optional[str] = None,
                  precision_config: Optional[Dict[str, Any]] = None,
                  seed: Optional[int] = None, config: Optional[Config] = None,
-                 gpt_path: Optional[str] = None, speaker_info_path: Optional[str] = None):
+                 gpt_path: Optional[str] = None, speaker_info_path: Optional[str] = None,
+                 tp: int = 0, _tp_member=None):
         """`config` takes the place of `cfg_path` (no YAML needed); with
         neither, the dataclass defaults (the flagship) apply.  The GPT
         checkpoint is `gpt_path` (absolute, or relative to `model_dir`; a
@@ -265,15 +279,29 @@ class IndexTTS:
         config's `bigvgan_checkpoint` there.  A missing file leaves random
         weights from a fixed seed.  `speaker_info_path` names the
         speaker_info.json whose speakers (and their medoid_mel.npy files
-        beside it) `speaker_id` requests may use."""
+        beside it) `speaker_id` requests may use.  `tp` > 1: tensor
+        parallelism over that many cards (see the module's docstring), each
+        collective and each rank's answer bounded by parallel/tp.TIMEOUT_S;
+        fewer visible cards raise before any weights load.  (`_tp_member` is a
+        follower's (rank, group), set by parallel/tp.py.)"""
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("IndexTTS: CUDA is not available; pass device='cpu' to "
                                "run on the CPU")
+        self.tp = int(tp) if tp and int(tp) > 1 else 1
+        self.tp_rank, self.tp_group = _tp_member or (0, None)
+        self._tp: Optional[tp_mod.Followers] = None
+        if self.tp > 1 and self.device.type == "cuda":
+            visible = torch.cuda.device_count()
+            if visible < self.tp:
+                raise ValueError(f"tp={self.tp} requires {self.tp} devices; only {visible} "
+                                 "visible")
+            self.device = torch.device("cuda", self.tp_rank)
         if config is None:
             config = (Config.load(cfg_path) if cfg_path and os.path.exists(cfg_path)
                       else Config())
         self.cfg = config
+        tp_mod.check_heads(self.cfg.gpt.heads, self.tp)
         self.model_dir = model_dir
         self.model_version = self.cfg.version
 
@@ -320,9 +348,29 @@ class IndexTTS:
         self.cfg_scale = float(pick("cfg_scale", 1.0))
         self.stop_mel_token = self.cfg.gpt.stop_mel_token
         self._rng_seed = seed if seed is not None else 0
+        if self.tp > 1 and self.tp_group is None:
+            # the followers load their shards while this rank loads its own
+            self._tp = tp_mod.Followers(self.tp, self.device, dict(
+                cfg_path=None, config=self.cfg, model_dir=model_dir, is_fp16=is_fp16,
+                device=self.device.type, precision_config=precision_config, gpt_path=gpt_path))
+            self.tp_group = self._tp.group
+        try:
+            self._load(model_dir, gpt_path, speaker_info_path)
+            if self._tp is not None:
+                self._tp.wait_ready()
+        except BaseException:
+            self.close()
+            raise
 
+    def _load(self, model_dir: str, gpt_path: Optional[str],
+              speaker_info_path: Optional[str]) -> None:
+        """Weights, text front end, speakers and the engine's locks.  Under TP
+        every rank reads the GPT tree on the CPU and only its shard reaches
+        its card; a follower holds no vocoder and no front end (rank 0 runs
+        both)."""
         # --- models: reference checkpoints, else random weights --------
         gen = lambda s: torch.Generator(device=self.device).manual_seed(s)  # noqa: E731
+        load_dev = torch.device("cpu") if self.tp > 1 else self.device
         self.gpt_path = (gpt_path if gpt_path and os.path.isabs(gpt_path)
                          else os.path.join(model_dir, gpt_path) if gpt_path
                          else os.path.join(model_dir, self.cfg.gpt_checkpoint))
@@ -334,21 +382,33 @@ class IndexTTS:
             # (train/run.py, model_epoch_N)
             self._set_gpt_params(from_jax.gpt_params_from_numpy(
                 checkpoint.load_pytree(self.gpt_path), self.cfg.gpt, self.gpt_dtype,
-                self.device))
+                load_dev))
         elif os.path.exists(self.gpt_path):
             # the numpy tree goes to the device in gpt_dtype, and is quantized
             # from that master as the precision keys say
             tree, extras = checkpoint.load_gpt_checkpoint(self.gpt_path, self.cfg.gpt)
             self._set_gpt_params(from_jax.gpt_params_from_numpy(
-                tree, self.cfg.gpt, self.gpt_dtype, self.device))
+                tree, self.cfg.gpt, self.gpt_dtype, load_dev))
             del tree
             self.speaker_conditions = extras.get("speaker_conditions", {})
             self.speaker_mels = extras.get("speaker_mels", {})
             self.mean_condition = extras.get("mean_condition")
         else:
-            warnings.warn(f"gpt checkpoint {self.gpt_path} not found; random weights")
-            self._set_gpt_params(uv.init_params(self.cfg.gpt, gen(0), self.gpt_dtype,
-                                                self.device))
+            if self.tp_rank == 0:
+                warnings.warn(f"gpt checkpoint {self.gpt_path} not found; random weights")
+            self._set_gpt_params(uv.init_params(
+                self.cfg.gpt, torch.Generator(device=load_dev).manual_seed(0), self.gpt_dtype,
+                load_dev))
+        # one device, one synthesis at a time: infer, infer_stream and
+        # infer_fast take it around their device phases (pool serving does
+        # not).  A plain Lock, not an RLock: a stream's next() and close()
+        # may come from other threads than the one that started it, and
+        # Lock.release() is thread-agnostic.
+        self._infer_lock = threading.Lock()
+        self._vocode_coord: Optional[_VocodeCoordinator] = None
+        self.last_stats: Dict[str, Any] = {}
+        if self.tp_rank > 0:
+            return
         bv_path = os.path.join(model_dir, self.cfg.bigvgan_checkpoint)
         if os.path.exists(bv_path):
             self.bigvgan_params = from_jax.bigvgan_params_from_numpy(
@@ -382,24 +442,26 @@ class IndexTTS:
         self.cache_audio_prompt: Optional[str] = None
         self.cache_cond_mel: Optional[torch.Tensor] = None
         self._prompt_cache_lock = threading.Lock()   # pool requests come from many threads
-        # one device, one synthesis at a time: infer, infer_stream and
-        # infer_fast take it around their device phases (pool serving does
-        # not).  A plain Lock, not an RLock: a stream's next() and close()
-        # may come from other threads than the one that started it, and
-        # Lock.release() is thread-agnostic.
-        self._infer_lock = threading.Lock()
-        self._vocode_coord: Optional[_VocodeCoordinator] = None
         mel = self.cfg.dataset.mel
         self._mel_extractor = MelSpectrogramFeatures(
             sample_rate=mel.sample_rate, n_fft=mel.n_fft, hop_length=mel.hop_length,
             win_length=mel.win_length, n_mels=mel.n_mels)
-        self.last_stats: Dict[str, Any] = {}
 
     def _set_gpt_params(self, master: Dict[str, Any]) -> None:
         """The GPT trees from float weights in gpt_dtype: `gpt_params` for the
         single-row kernel and `gpt_params_batched` for beam decode and the
         re-forward.  They differ only under int4: the fused layout, and the
-        shared-scale layout."""
+        shared-scale layout.  Under TP both are this rank's shard of the
+        batched tree, quantized whole (row-parallel scales span all of K) and
+        then cut, and only the shard goes to the card."""
+        if self.tp > 1:
+            tree = master
+            if self.use_quantization:
+                bits = 4 if self.quant_weight_dtype == "int4" else 8
+                tree = quantization.quantize_gpt_params(master, bits=bits, int4_layout="shared")
+            self.gpt_params = self.gpt_params_batched = tp_mod.to_device(
+                tp_mod.shard_uv_params(tree, self.tp_rank, self.tp), self.device)
+            return
         self.gpt_params = master
         self.gpt_params_batched = master
         if self.use_quantization:
@@ -412,11 +474,42 @@ class IndexTTS:
     def load_numpy_params(self, gpt_tree: Any, bigvgan_tree: Any) -> None:
         """Take the JAX package's float parameter trees, as numpy arrays, for
         both models (cast to this engine's precisions, then quantized as its
-        precision keys say)."""
-        self._set_gpt_params(from_jax.gpt_params_from_numpy(
-            gpt_tree, self.cfg.gpt, self.gpt_dtype, self.device))
+        precision keys say).  Under TP every rank takes its GPT shard."""
+        self._on_ranks("_load_gpt_numpy", gpt_tree)
         self.bigvgan_params = from_jax.bigvgan_params_from_numpy(
             bigvgan_tree, self.cfg.bigvgan, self.vocoder_dtype, self.device)
+
+    def _load_gpt_numpy(self, gpt_tree: Any) -> None:
+        self._set_gpt_params(from_jax.gpt_params_from_numpy(
+            gpt_tree, self.cfg.gpt, self.gpt_dtype,
+            torch.device("cpu") if self.tp > 1 else self.device))
+
+    # -- tensor parallelism -------------------------------------------------
+
+    def _on_ranks(self, target: str, *args) -> List[Any]:
+        """`target` on every rank of the tensor-parallel group (here alone
+        without one), each rank's result by rank: a method's name, or
+        "module:function" called as function(engine, *args)
+        (parallel/tp.call)."""
+        if self._tp is None:
+            return [tp_mod.call(self, target, args)]
+        own, rest = self._tp.run(self, target, args)
+        return [own] + rest
+
+    @property
+    def tp_broken(self) -> Optional[str]:
+        """Why the tensor-parallel group takes no more calls (a rank failed,
+        died or hung, or the engine is closed), else None."""
+        return None if self._tp is None else self._tp.broken
+
+    def close(self) -> None:
+        """Stop the vocode coordinator and, under TP, the other ranks (after
+        the call in flight).  The engine takes no sharded call after this.
+        Idempotent; nothing else to release on one card."""
+        if getattr(self, "_vocode_coord", None) is not None:
+            self.disable_vocode_batching()
+        if self._tp is not None:
+            self._tp.close()
 
     # -- helpers ----------------------------------------------------------
 
@@ -484,8 +577,38 @@ class IndexTTS:
                        generation: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray, int]:
         """Batched decode of one bucket of sentences, text left-padded to a
         multiple of 16.  Returns (codes [B, max_new], lengths [B], decode
-        steps)."""
+        steps).  Under TP every rank decodes, from `generator`'s seed (the
+        decode itself checks that every rank's codes are rank 0's)."""
+        beam, kwargs = self._decode_options(len(token_lists), generation)
+        if self._tp is None:
+            return self._decode_rows(cond_latent, token_lists, generator, beam, kwargs)
+        seed = None if generator is None else generator.initial_seed()
+        return self._on_ranks("_decode_rows", cond_latent, token_lists, seed, beam, kwargs)[0]
+
+    def _decode_rows(self, cond_latent, token_lists, generator, beam: bool,
+                     kwargs: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """`_decode_bucket` after its options: `generator` a torch.Generator,
+        a seed or None."""
+        if isinstance(generator, int):
+            generator = torch.Generator(device=self.device).manual_seed(generator)
         tokens_t, mask_t = self._text_inputs(token_lists)
+        if beam:
+            result = uv.inference_speech_beam(
+                self.gpt_params_batched, self.cfg.gpt, cond_latent, tokens_t, mask_t,
+                generator, group=self.tp_group, **kwargs)
+        else:
+            kwargs = dict(kwargs)
+            use_fused = kwargs.pop("use_fused_trunk")
+            result = uv.inference_speech(
+                self.gpt_params if use_fused else self.gpt_params_batched, self.cfg.gpt,
+                cond_latent, tokens_t, mask_t, generator, use_fused_trunk=use_fused,
+                group=self.tp_group, **kwargs)
+        return result.codes.cpu().numpy(), result.lengths.cpu().numpy(), result.steps
+
+    def _decode_options(self, rows: int, generation: Dict[str, Any]
+                        ) -> Tuple[bool, Dict[str, Any]]:
+        """(beam decode?, its keyword arguments) from a request's generation
+        options; warns where the request asks for what the mode ignores."""
         # reference decode default: num_beams=3 (infer.py:633); a cfg_scale
         # without an explicit num_beams switches to sampling
         cfg_scale = float(generation.get("cfg_scale", self.cfg_scale))
@@ -510,25 +633,21 @@ class IndexTTS:
             if cfg_scale != 1.0:
                 warnings.warn("cfg_scale is a sampling-mode feature; beam decode ignores "
                               "it (set num_beams=1 to use guidance)", RuntimeWarning)
-            result = uv.inference_speech_beam(
-                self.gpt_params_batched, self.cfg.gpt, cond_latent, tokens_t, mask_t,
-                generator, num_beams=num_beams,
-                length_penalty=float(generation.get("length_penalty", 0.0)), **kwargs)
-        else:
-            # the decode-trunk kernel (K2) takes one unguided row: one
-            # sentence at cfg_scale 1, unless the caller opts out.  It keeps
-            # the cache in the compute type unless kv_dtype is asked for, as
-            # the JAX engine does for its fused trunk; guided and batched
-            # rows keep the engine's KV tier
-            use_fused = bool(generation.get("use_fused_trunk",
-                                            len(token_lists) == 1 and cfg_scale == 1.0))
-            if use_fused and generation.get("kv_dtype") is None:
-                kwargs["kv_dtype"] = None
-            result = uv.inference_speech(
-                self.gpt_params if use_fused else self.gpt_params_batched, self.cfg.gpt,
-                cond_latent, tokens_t, mask_t, generator, use_fused_trunk=use_fused,
-                cfg_scale=cfg_scale, **kwargs)
-        return result.codes.cpu().numpy(), result.lengths.cpu().numpy(), result.steps
+            kwargs.update(num_beams=num_beams,
+                          length_penalty=float(generation.get("length_penalty", 0.0)))
+            return True, kwargs
+        # the decode-trunk kernel (K2) takes one unguided row: one sentence at
+        # cfg_scale 1, unless the caller opts out, and never under TP (a
+        # one-card kernel, as in the JAX engine).  It keeps the cache in the
+        # compute type unless kv_dtype is asked for, as the JAX engine does
+        # for its fused trunk; guided and batched rows keep the engine's KV
+        # tier
+        use_fused = bool(generation.get("use_fused_trunk", rows == 1 and cfg_scale == 1.0)) \
+            and self.tp == 1
+        if use_fused and generation.get("kv_dtype") is None:
+            kwargs["kv_dtype"] = None
+        kwargs.update(use_fused_trunk=use_fused, cfg_scale=cfg_scale)
+        return False, kwargs
 
     def _latents(self, cond_latent, text_tokens: np.ndarray, text_len: int,
                  codes: np.ndarray, code_len: int) -> torch.Tensor:
@@ -544,12 +663,21 @@ class IndexTTS:
         codes_p[0, :code_len] = codes[:code_len]
         text_p = np.zeros((1, twidth), dtype=np.int64)
         text_p[0, :text_len] = text_tokens[:text_len]
+        lat = self._on_ranks("_latent_forward", cond_latent, text_p, np.asarray([text_len]),
+                             codes_p, np.asarray([code_len]))[0]
+        return lat[0]  # [width, D], valid prefix = code_len
+
+    def _latent_forward(self, cond_latent, text_p: np.ndarray, text_lens: np.ndarray,
+                        codes_p: np.ndarray, code_lens: np.ndarray) -> Optional[torch.Tensor]:
+        """uv.latent_forward of padded host inputs on this rank; the latents
+        [B, width, D] on rank 0, None on a follower (rank 0 vocodes)."""
         dev = self.device
         lat = uv.latent_forward(
-            self.gpt_params_batched, self.cfg.gpt, cond_latent, torch.as_tensor(text_p, device=dev),
-            torch.tensor([text_len], device=dev), torch.as_tensor(codes_p, device=dev),
-            torch.tensor([code_len], device=dev))
-        return lat[0]  # [width, D], valid prefix = code_len
+            self.gpt_params_batched, self.cfg.gpt, cond_latent,
+            torch.as_tensor(text_p, device=dev), torch.as_tensor(text_lens, device=dev),
+            torch.as_tensor(codes_p, device=dev), torch.as_tensor(code_lens, device=dev),
+            group=self.tp_group)
+        return lat if self.tp_rank == 0 else None
 
     def _latents_batch_dev(self, cond_latent, id_lists, codes: np.ndarray,
                            lens: np.ndarray) -> torch.Tensor:
@@ -570,11 +698,8 @@ class IndexTTS:
             codes_p[i, : int(lens[i])] = codes[i, : int(lens[i])]
         if cond_latent.shape[0] == 1 and B > 1:
             cond_latent = cond_latent.expand(B, -1, -1)
-        dev = self.device
-        return uv.latent_forward(
-            self.gpt_params_batched, self.cfg.gpt, cond_latent, torch.as_tensor(text_p, device=dev),
-            torch.as_tensor(tlens, device=dev), torch.as_tensor(codes_p, device=dev),
-            torch.as_tensor(lens.astype(np.int64), device=dev))
+        return self._on_ranks("_latent_forward", cond_latent, text_p, tlens, codes_p,
+                              lens.astype(np.int64))[0]
 
     def _vocode(self, latent: torch.Tensor, mel_ref: torch.Tensor) -> torch.Tensor:
         """BigVGAN then int16 PCM on the device: scale in fp32, clip, and
@@ -1100,6 +1225,8 @@ class IndexTTS:
         default num_beams=3 requests on the throughput path.  submit / step
         / run / cancel as `create_batcher`'s pools, so `pool_infer`,
         `pool_infer_stream` and the server's drive loop take it as it is."""
+        if self.tp > 1:
+            raise ValueError("continuous beam batching is not supported with tp>1")
         return BeamPoolBatcher(self.gpt_params_batched, self.cfg.gpt,
                                self._pool_conditioning(audio_prompt, speaker_id),
                                device=self.device, **self._pool_defaults(kwargs))
@@ -1109,7 +1236,13 @@ class IndexTTS:
         """Continuous-batching decode pool (serve/scheduler.py) over this
         engine's weights, on its device: submit tokenised sentences, drain
         codes as they finish.  `dp` > 1 returns a `PoolGroup`, one pool per
-        card over cuda:0 .. cuda:dp-1."""
+        card over cuda:0 .. cuda:dp-1.  Refused under TP (a one-card pool, as in
+        the JAX engine)."""
+        if self.tp > 1:
+            raise ValueError(
+                "continuous batching (--continuous) is not supported with tensor-parallel "
+                "inference (tp>1); run the pool on one card or use "
+                "infer/infer_fast/infer_stream under TP")
         cond = self._pool_conditioning(audio_prompt, speaker_id)
         kwargs = self._pool_defaults(kwargs)
         if dp and dp > 1:

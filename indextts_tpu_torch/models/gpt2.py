@@ -7,6 +7,12 @@ Parameters keep the JAX package's stacked layout: every block tensor has
 the layers on a leading axis, and matrices are K-major, e.g.
 ``blocks.attn.qkv_w`` is [L, D, 3D].  The single-row decode kernel reads one
 contiguous per-layer slab of each, and weights carry across as a plain copy.
+
+Tensor parallelism (parallel/tp.py): with a `group` (parallel/mesh.TPGroup)
+the step functions run on one rank's shard of the trunk, its H/N heads and
+4D/N MLP columns, and sum the two row-parallel products of each block over
+the ranks (two all-reduces a layer, and nowhere else); the K/V cache holds
+the rank's heads.  Without a group they compute what they did before.
 """
 
 from __future__ import annotations
@@ -48,6 +54,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def local_size(size: GPT2Size, group=None) -> GPT2Size:
+    """The trunk size one rank of `group` computes: its H/N heads, D/N of the
+    attention width (the whole size without a group)."""
+    n = 1 if group is None else group.size
+    if n == 1:
+        return size
+    if size.heads % n:
+        raise ValueError(f"{n} ranks do not divide the trunk's {size.heads} heads")
+    return GPT2Size(layers=size.layers, dim=size.dim // n, heads=size.heads // n)
 
 
 def tree_index(tree, i: int):
@@ -139,17 +156,25 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, T, H * hd)
 
 
-def _block(hidden: torch.Tensor, blk: Dict[str, Any], heads: int, attend) -> torch.Tensor:
-    """One transformer block; `attend` maps (q, k, v) -> context."""
+def _block(hidden: torch.Tensor, blk: Dict[str, Any], heads: int, attend,
+           group=None) -> torch.Tensor:
+    """One transformer block; `attend` maps (q, k, v) -> context.  With a
+    `group`, `blk` is one rank's shard (`heads` its own) and the two
+    row-parallel products are summed over the ranks before their bias."""
     x = layer_norm(hidden, blk["ln_1"]["scale"], blk["ln_1"]["bias"])
     qkv = _mm(x, blk["attn"]["qkv_w"]) + blk["attn"]["qkv_b"].to(x.dtype)
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     ctx = attend(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads))
     proj = _mm(_merge_heads(ctx), blk["attn"]["proj_w"])
+    if group is not None:
+        proj = group.all_reduce(proj)
     hidden = hidden + proj + blk["attn"]["proj_b"].to(x.dtype)
     x = layer_norm(hidden, blk["ln_2"]["scale"], blk["ln_2"]["bias"])
     h = gelu_new(_mm(x, blk["mlp"]["fc_w"]) + blk["mlp"]["fc_b"].to(x.dtype))
-    return hidden + _mm(h, blk["mlp"]["proj_w"]) + blk["mlp"]["proj_b"].to(x.dtype)
+    out = _mm(h, blk["mlp"]["proj_w"])
+    if group is not None:
+        out = group.all_reduce(out)
+    return hidden + out + blk["mlp"]["proj_b"].to(x.dtype)
 
 
 def _causal_bias(attention_mask: Optional[torch.Tensor], T: int,
@@ -162,28 +187,31 @@ def _causal_bias(attention_mask: Optional[torch.Tensor], T: int,
 
 def forward(params: Dict[str, Any], hidden: torch.Tensor,
             attention_mask: Optional[torch.Tensor], size: GPT2Size,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, group=None) -> torch.Tensor:
     """Teacher-forced forward.  hidden [B, T, D]; attention_mask [B, T]
     (1 = valid) or None.  Returns ln_f(hidden) [B, T, D].  With `remat`,
     backward recomputes each block from its input instead of keeping its
     activations (the fp32 attention scores above all), as JAX's
     `jax.checkpoint` of the layer scan does."""
+    size = local_size(size, group)
     bias = _causal_bias(attention_mask, hidden.shape[1], hidden.device)
     attend = lambda q, k, v: _attention(q, k, v, bias)  # noqa: E731
     for blk in tree_unstack(params["blocks"]):
         if remat:
             hidden = torch.utils.checkpoint.checkpoint(
-                _block, hidden, blk, size.heads, attend, use_reentrant=False)
+                _block, hidden, blk, size.heads, attend, group, use_reentrant=False)
         else:
-            hidden = _block(hidden, blk, size.heads, attend)
+            hidden = _block(hidden, blk, size.heads, attend, group)
     return layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
 
 
 def prefill(params: Dict[str, Any], hidden: torch.Tensor, attention_mask: torch.Tensor,
-            size: GPT2Size, cache_len: int, kv_dtype=None) -> Tuple[torch.Tensor, KVCache]:
+            size: GPT2Size, cache_len: int, kv_dtype=None,
+            group=None) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt and build the KV cache, allocated at `cache_len` with
     the first T slots filled, stored as `kv_dtype` (default: hidden's type).
     Returns (ln_f output [B, T, D], cache)."""
+    size = local_size(size, group)
     B, T, _ = hidden.shape
     bias = _causal_bias(attention_mask, T, hidden.device)
     cache = KVCache.zeros(size, B, cache_len, kv_dtype or hidden.dtype, hidden.device)
@@ -193,18 +221,19 @@ def prefill(params: Dict[str, Any], hidden: torch.Tensor, attention_mask: torch.
             cache.v[l, :, :, :T] = v.to(cache.v.dtype)
             return _attention(q, k, v, bias)
 
-        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend, group)
     out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
     return out, cache
 
 
 def decode_step(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
                 position: int, attention_mask: torch.Tensor,
-                size: GPT2Size) -> Tuple[torch.Tensor, KVCache]:
+                size: GPT2Size, group=None) -> Tuple[torch.Tensor, KVCache]:
     """Single-token incremental forward.  hidden [B, 1, D]; position: the slot
     of this token's K/V (written into `cache` in place, in the cache's type);
     attention_mask [B, cache_len] with 1 on every valid slot including
     `position`.  Returns (ln_f output [B, 1, D], cache)."""
+    size = local_size(size, group)
     bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0, NEG_INF).float()
     for l in range(size.layers):
         def attend(q, k, v, l=l):
@@ -212,19 +241,20 @@ def decode_step(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
             cache.v[l, :, :, position] = v[:, :, 0].to(cache.v.dtype)
             return _attention(q, cache.k[l], cache.v[l], bias)
 
-        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend, group)
     out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
     return out, cache
 
 
 def decode_step_rows(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCache,
                      positions: torch.Tensor, attention_mask: torch.Tensor,
-                     size: GPT2Size) -> Tuple[torch.Tensor, KVCache]:
+                     size: GPT2Size, group=None) -> Tuple[torch.Tensor, KVCache]:
     """Single-token forward with a cache position per row, the continuous
     pool's step: every slot sits at its own offset.  hidden [B, 1, D];
     positions [B] the write slots (row b's K/V is written at positions[b] in
     place, in the cache's type); attention_mask [B, cache_len] including
     `positions`.  Returns (ln_f output [B, 1, D], cache)."""
+    size = local_size(size, group)
     bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0, NEG_INF).float()
     rows = torch.arange(hidden.shape[0], device=hidden.device)
     pos = positions.long()
@@ -234,7 +264,7 @@ def decode_step_rows(params: Dict[str, Any], hidden: torch.Tensor, cache: KVCach
             cache.v[l][rows, :, pos] = v[:, :, 0].to(cache.v.dtype)
             return _attention(q, cache.k[l], cache.v[l], bias)
 
-        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend, group)
     out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
     return out, cache
 
@@ -315,7 +345,8 @@ def _lineage_context(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, ks: to
 
 def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KVCache,
                         prefix_bias: torch.Tensor, suffix: KVCache, suffix_bias: torch.Tensor,
-                        step: int, size: GPT2Size, nb: int) -> Tuple[torch.Tensor, KVCache]:
+                        step: int, size: GPT2Size, nb: int,
+                        group=None) -> Tuple[torch.Tensor, KVCache]:
     """Beam decode step with no physical cache reorder.
 
     The prompt prefix is cached once per request row (prefix [L, B, H, Pc,
@@ -329,6 +360,7 @@ def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KV
     hidden [B*nb, 1, D]; prefix_bias [B, 1, 1, Pc]; this token's K/V is
     written at suffix slot step-1 of each row's own suffix, in place.
     Returns (ln_f output [B*nb, 1, D], suffix)."""
+    size = local_size(size, group)
     sb = suffix_bias[:, :, :, None, :]              # [B, nbq, nbk, 1, Sc] (over H)
     for l in range(size.layers):
         def attend(q, k, v, l=l):
@@ -338,7 +370,7 @@ def decode_step_lineage(params: Dict[str, Any], hidden: torch.Tensor, prefix: KV
             return _lineage_context(q, prefix.k[l], prefix.v[l], suffix.k[l], suffix.v[l],
                                     prefix_bias, sb, nb)
 
-        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend)
+        hidden = _block(hidden, tree_index(params["blocks"], l), size.heads, attend, group)
     out = layer_norm(hidden, params["ln_f"]["scale"], params["ln_f"]["bias"])
     return out, suffix
 

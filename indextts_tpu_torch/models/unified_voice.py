@@ -10,6 +10,15 @@ ops/cuda/permute.py (K3): the hand-written kernels for CUDA tensors, their
 plain versions on the CPU.  Trunk and head matrices may be quantized
 (ops/quantization.py).
 
+Under tensor parallelism (`group`, parallel/mesh.TPGroup) the decodes and
+the re-forward run one rank's shard of the trunk (parallel/tp.py); the
+embeddings, `final_norm` and the heads are whole on every rank.  What
+steers a decode is rank 0's on every rank: the sampled tokens (and from
+them the stop flags), and a beam step's outcome (scores, bank, parents,
+tokens, sequences, done flags), each copied in one small collective a step;
+every call ends by checking that each rank's codes are rank 0's.  K2 is a
+one-card kernel and is not used under a group.
+
 Reference quirk kept on purpose: the n-th generated mel token sits at mel
 position n+1 (HF's position bookkeeping, gpt/model.py:164-167); checkpoints
 are trained against this numbering.
@@ -220,7 +229,8 @@ def top_k_accuracy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tens
 
 def latent_forward(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Tensor,
                    text_ids: torch.Tensor, text_lengths: torch.Tensor,
-                   mel_codes: torch.Tensor, codes_lengths: torch.Tensor) -> torch.Tensor:
+                   mel_codes: torch.Tensor, codes_lengths: torch.Tensor,
+                   group=None) -> torch.Tensor:
     """Teacher-forced re-forward giving per-code latents [B, Lc, D] for the
     vocoder (infer.py:864-875).  Positions past codes_lengths carry stop-token
     latents (set_mel_padding, gpt/model.py:439-447)."""
@@ -251,7 +261,7 @@ def latent_forward(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.Te
         (torch.arange(Lt + 2, device=dev)[None] < (text_lengths[:, None] + 2)).int(),
         (torch.arange(Lc + 2, device=dev)[None] < (codes_lengths[:, None] + 2)).int(),
     ], dim=1)
-    hidden = gpt2.forward(params["gpt"], emb, attn, size)
+    hidden = gpt2.forward(params["gpt"], emb, attn, size, group=group)
     latent = layer_norm(hidden[:, cond_len:], params["final_norm"]["scale"],
                         params["final_norm"]["bias"])
     return latent[:, Lt + 2:][:, :-2]  # (gpt/model.py:591-593)
@@ -278,6 +288,18 @@ def prepare_text_prompt(text_ids_list, start_token: int, stop_token: int) -> Pre
         tokens[i, L - len(c):] = c
         mask[i, L - len(c):] = 1
     return PreparedPrompt(tokens, mask)
+
+
+def _sample_agreed(logits, presence, finished, group, **samp):
+    """`sampling.sample_step`, with rank 0's tokens on every rank of `group`:
+    each rank draws (so the generators stay in step), rank 0's draw is
+    copied, and the presence and stop flags follow the copied tokens."""
+    if group is None:
+        return sampling.sample_step(logits, presence, finished, **samp)
+    own, _, _ = sampling.sample_step(logits, presence.clone(), finished, **samp)
+    tok = group.agree(own)
+    presence[torch.arange(tok.shape[0], device=tok.device), tok.long()] = True
+    return tok, presence, finished | (tok == samp["stop_token"])
 
 
 class DecodeResult(NamedTuple):
@@ -316,7 +338,7 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
                      repetition_penalty: float = 10.0, do_sample: bool = True,
                      typical_sampling: bool = False, typical_mass: float = 0.9,
                      cache_dtype=None, use_fused_trunk: bool = True, kv_dtype=None,
-                     cfg_scale: float = 1.0) -> DecodeResult:
+                     cfg_scale: float = 1.0, group=None) -> DecodeResult:
     """Autoregressive mel-code generation (replaces HF generate,
     gpt/model.py:669-720): prefill of [cond | text | start_mel], then one
     trunk step per token until every row stopped or `max_new` codes exist.
@@ -333,7 +355,8 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     takes plain, int8 and fused-int4 weights.  Otherwise, as in the JAX
     package, each step is gpt2.decode_step over the 5-D cache (any weight
     form, the shared int4 layout included).  kv_dtype: the cache's storage
-    type (default cache_dtype), e.g. torch.float8_e4m3fn."""
+    type (default cache_dtype), e.g. torch.float8_e4m3fn.  group: this
+    rank's tensor-parallel group, `params` its shard (no K2)."""
     params = quantization.nativize_int4(params)
     size = trunk_size(cfg)
     dev = cond_latent.device
@@ -362,7 +385,7 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
     P = prefill_emb.shape[1]
     cache_len = -(-(P + max_new) // 8) * 8
     hidden, cache = gpt2.prefill(params["gpt"], prefill_emb.to(cache_dtype), prefill_mask,
-                                 size, cache_len, kv_dtype=kv_dtype)
+                                 size, cache_len, kv_dtype=kv_dtype, group=group)
     logits = mix(_lm_head(params, hidden[:, -1]))
 
     full_mask = torch.zeros(R, cache_len, dtype=torch.int32, device=dev)
@@ -374,11 +397,11 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
                 top_p=top_p, repetition_penalty=repetition_penalty, do_sample=do_sample,
                 typical_sampling=typical_sampling, typical_mass=typical_mass,
                 generator=generator)
-    tok, presence, finished = sampling.sample_step(logits, presence, finished, **samp)
+    tok, presence, finished = _sample_agreed(logits, presence, finished, group, **samp)
     codes = torch.full((B, max_new), cfg.stop_mel_token, dtype=torch.int32, device=dev)
     codes[:, 0] = tok
 
-    fused = use_fused_trunk and R == 1
+    fused = use_fused_trunk and R == 1 and group is None
     if fused:
         k_flat, v_flat = flatten_cache(cache)
         del cache
@@ -399,11 +422,13 @@ def inference_speech(params: Dict[str, Any], cfg: GPTConfig, cond_latent: torch.
             hidden = layer_norm(pre, ln_f["scale"], ln_f["bias"])
         else:
             hidden, cache = gpt2.decode_step(params["gpt"], emb.to(cache_dtype), cache, slot,
-                                             full_mask, size)
+                                             full_mask, size, group=group)
         logits = mix(_lm_head(params, hidden[:, 0]))
-        tok, presence, finished = sampling.sample_step(logits, presence, finished, **samp)
+        tok, presence, finished = _sample_agreed(logits, presence, finished, group, **samp)
         codes[:, step] = tok
         step += 1
+    if group is not None:
+        group.check_same(codes, "inference_speech codes")
 
     is_stop = codes == cfg.stop_mel_token
     first_stop = torch.argmax(is_stop.int(), dim=1)
@@ -446,7 +471,8 @@ def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: t
                           do_sample: bool = True, typical_sampling: bool = False,
                           typical_mass: float = 0.9, cache_dtype=None,
                           reorder: str = "lineage", kv_dtype=None,
-                          length_penalty: float = 0.0, gumbel=None) -> DecodeResult:
+                          length_penalty: float = 0.0, gumbel=None,
+                          group=None) -> DecodeResult:
     """Beam(-sample) mel-code generation with HF 4.44 semantics (ops/beam.py
     flat_scores): log_softmax -> processors -> + beam scores -> per-beam
     warpers -> draw 2*nb candidates -> bank the finished, continue the best
@@ -471,7 +497,9 @@ def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: t
 
     generator: the sampling noise's source.  gumbel: indexable by step, each
     entry [B, nb*V], replacing the noise of that step (the tests feed the
-    JAX package's draws).  Returns codes, lengths and whether the winning
+    JAX package's draws).  group: this rank's tensor-parallel group,
+    `params` its shard; each rank's caches hold its heads, and K3 reorders
+    them under "pallas".  Returns codes, lengths and whether the winning
     hypothesis stopped; `steps` counts the trunk steps after the prefill."""
     if reorder not in REORDERS:
         raise ValueError(f"unknown reorder strategy: {reorder!r}")
@@ -492,15 +520,16 @@ def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: t
     suffix_len = -(-max_new // 64) * 64
     # the prefill runs on B rows, not B*nb: the beams share it
     hidden, prefix = gpt2.prefill(params["gpt"], prefill_emb.to(cache_dtype), prefill_mask,
-                                  size, prefix_len, kv_dtype=kv_dtype)
+                                  size, prefix_len, kv_dtype=kv_dtype, group=group)
     logits0 = _lm_head(params, hidden[:, -1]).repeat_interleave(nb, dim=0)   # [B*nb, V]
 
     pmask = torch.zeros(B, prefix_len, dtype=torch.bool, device=dev)
     pmask[:, :P] = prefill_mask.bool()
     prefix_bias = torch.where(pmask, 0.0, gpt2.NEG_INF).float()[:, None, None, :]
-    suffix = gpt2.KVCache.zeros(size, B * nb, suffix_len, store, dev)
-    spare = gpt2.KVCache.zeros(size, B * nb, suffix_len, store, dev) if reorder == "pallas" \
-        else None
+    rank_size = gpt2.local_size(size, group)
+    suffix = gpt2.KVCache.zeros(rank_size, B * nb, suffix_len, store, dev)
+    spare = (gpt2.KVCache.zeros(rank_size, B * nb, suffix_len, store, dev)
+             if reorder == "pallas" else None)
     presence = sampling.init_penalty_presence(V, B * nb, prompt_token_ids=(1,),
                                               start_token=cfg.start_mel_token, device=dev)
     state = beam_lib.init_beam_state(B, nb, max_new, dev)
@@ -523,6 +552,8 @@ def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: t
             gumbel=None if gumbel is None else gumbel[step])
         # latch HF's _done after the step's banking (beam_search.py:300-306)
         done = done | beam_lib.batch_done(state, step, best_cand, length_penalty)
+        if group is not None:               # rank 0's step on every rank
+            state, parent, token, seqs, done = group.agree((state, parent, token, seqs, done))
         rows = (batch_rows + parent).reshape(-1)                  # absolute [B*nb]
         if reorder == "lineage":
             if has_cache:
@@ -550,7 +581,7 @@ def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: t
         suffix_bias = torch.where(owns & (valid_slots < step), 0.0, gpt2.NEG_INF).float()
         hidden, suffix = gpt2.decode_step_lineage(
             params["gpt"], emb.to(cache_dtype), prefix, prefix_bias, suffix, suffix_bias,
-            step, size, nb)
+            step, size, nb, group=group)
         logits = _lm_head(params, hidden[:, 0])
         tok = select(logits, step, has_cache=True)
         step += 1
@@ -562,4 +593,6 @@ def inference_speech_beam(params: Dict[str, Any], cfg: GPTConfig, cond_latent: t
     lengths = torch.where(finished, best_len - 1, best_len).clamp(0, max_new)
     codes = torch.where(torch.arange(max_new, device=dev)[None, :] < lengths[:, None],
                         best_seq, cfg.stop_mel_token)
+    if group is not None:
+        group.check_same(codes, "inference_speech_beam codes")
     return DecodeResult(codes, lengths, finished, step - 1)

@@ -23,18 +23,26 @@ the port trained across cards.  Under the launcher a world of one is a real
 group of one.  JAX's `make_mesh`, `data_sharding`, `replicated` and
 `ShardingRules` have no torch meaning (a rank holds whole parameters and
 its own rows) and are not ported.
+
+`TPGroup` is the group of one tensor-parallel engine (parallel/tp.py): a
+process group of its own beside torch.distributed's default world (so an
+engine can be built and closed again in any process), over NCCL on the
+card and gloo on the CPU, its rendezvous a TCP store on localhost, and each
+collective bounded by a deadline.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 600.0
+NCCL_GRACE_S = 60.0     # a TPGroup's collectives on the card: its deadline plus this
 
 
 def env_world() -> Optional[int]:
@@ -224,6 +232,158 @@ def all_gather_host(values, group=None) -> List[List[float]]:
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, t, group=group)
     return [o.cpu().tolist() for o in out]
+
+
+def tp_store(n: int, timeout_s: float, port: Optional[int] = None):
+    """The rendezvous of an engine's `n` ranks on localhost: rank 0's store
+    on a free port (`port` None), or a follower's client of it."""
+    return dist.TCPStore("127.0.0.1", 0 if port is None else port, n, port is None,
+                         timeout=datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
+
+
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as flat int32 words (1-byte and bool values widened,
+    2-byte values widened from int16)."""
+    x = x.detach().contiguous().reshape(-1)
+    size = x.element_size()
+    if size in (4, 8):
+        return x.view(torch.int32)
+    if size == 2:
+        return x.view(torch.int16).to(torch.int32)
+    return x.to(torch.int32)
+
+
+def _from_words(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    size = like.element_size()
+    if size == 8:                  # a copy: its words start on an 8-byte boundary
+        out = w.clone().view(like.dtype)
+    elif size == 4:
+        out = w.view(like.dtype)
+    elif size == 2:
+        out = w.to(torch.int16).view(like.dtype)
+    else:
+        out = w.to(like.dtype)
+    return out.view(like.shape)
+
+
+class TPGroup:
+    """The process group of one tensor-parallel engine: `size` ranks, rank r
+    on `device` (cuda:r under NCCL, or the CPU under gloo), built over
+    `store` (`tp_store`) and bounded by `timeout_s` a collective (on the card
+    `NCCL_GRACE_S` more: the card's watchdog ends the process when a
+    collective outlives its timeout, so rank 0's own deadline, parallel/tp.py,
+    must come first and abort instead).  It counts what it does:
+    `all_reduces` (the trunk's sums, models/gpt2.py) and `agreements` (rank
+    0's choices copied to every rank, and the end-of-call checks); and
+    `last_issued` is when this rank last issued a collective (monotonic
+    seconds), which tells a wait on a rank that hangs from a long call."""
+
+    def __init__(self, rank: int, size: int, device, store, timeout_s: float):
+        self.rank, self.size = rank, size
+        self.device = torch.device(device)
+        self.store = store            # rank 0's store hosts the rendezvous: keep it alive
+        timeout = datetime.timedelta(seconds=timeout_s)
+        prefixed = dist.PrefixStore("tp", store)
+        if self.device.type == "cuda":
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = timeout + datetime.timedelta(seconds=NCCL_GRACE_S)
+            self.pg = dist.ProcessGroupNCCL(prefixed, rank, size, opts)
+            if not callable(getattr(self.pg, "abort", None)):
+                raise RuntimeError("tensor-parallel group: this torch's ProcessGroupNCCL has "
+                                   "no abort(), so a rank that dies or hangs could not be "
+                                   "survived")
+        else:
+            self.pg = dist.ProcessGroupGloo(prefixed, rank, size, timeout)
+        self.all_reduces = 0
+        self.agreements = 0
+        self.aborted: Optional[str] = None
+        self.last_issued = time.monotonic()
+        # the first collective: every rank is there, and (on the card) the
+        # communicator is made now rather than inside the first call
+        hello = torch.ones(1, device=self.device)
+        self.pg.allreduce([hello]).wait()
+        if int(hello.item()) != size:
+            raise RuntimeError(f"tensor-parallel group: {hello.item()} ranks answered, not {size}")
+
+    @classmethod
+    def from_world(cls, timeout_s: float = DEFAULT_TIMEOUT_S) -> "TPGroup":
+        """A group of every rank of the default world (`initialize_distributed`,
+        e.g. under parallel/multihost.run_ranks), on this rank's device: rank
+        0's store port reaches the others through the world."""
+        port = torch.zeros(1, dtype=torch.int64)
+        store = None
+        if rank() == 0:
+            store = tp_store(world(), timeout_s)
+            port[0] = store.port
+        dev = local_device("cuda" if dist.get_backend() == "nccl" else "cpu")
+        port = broadcast_tree(port.to(dev)).cpu()
+        if store is None:
+            store = tp_store(world(), timeout_s, port=int(port[0]))
+        return cls(rank(), world(), dev, store, timeout_s)
+
+    def _issue(self) -> None:
+        if self.aborted is not None:
+            raise RuntimeError(f"tensor-parallel group aborted: {self.aborted}")
+        self.last_issued = time.monotonic()
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the ranks, in place (x's type); counted."""
+        self._issue()
+        self.pg.allreduce([x]).wait()
+        self.all_reduces += 1
+        return x
+
+    def agree(self, tree):
+        """Rank 0's values of a tree of tensors on every rank, bit for bit,
+        in one collective (the leaves as int32 words); counted."""
+        leaves, rebuild = _flatten(tree)
+        flat = torch.cat([_as_words(x) for x in leaves])
+        opts = dist.BroadcastOptions()
+        opts.rootRank, opts.rootTensor = 0, 0
+        self._issue()
+        self.pg.broadcast([flat], opts).wait()
+        self.agreements += 1
+        parts = flat.split([_as_words(x).numel() for x in leaves])
+        return rebuild([_from_words(p, x) for p, x in zip(parts, leaves)])
+
+    def check_same(self, x: torch.Tensor, what: str) -> None:
+        """Raise on every rank unless every rank holds rank 0's `x`."""
+        ref = self.agree(x.clone())
+        bad = torch.tensor([0 if torch.equal(ref, x) else self.rank + 1], dtype=torch.int32,
+                           device=x.device)
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = dist.ReduceOp.MAX
+        self._issue()
+        self.pg.allreduce([bad], opts).wait()
+        if int(bad.item()):
+            raise RuntimeError(f"tensor-parallel ranks disagree on {what}: rank "
+                               f"{int(bad.item()) - 1} differs from rank 0")
+
+    def abort(self, why: str = "aborted") -> None:
+        """Take no more collectives (the next one raises `why`) and, on the
+        card, end the pending ones: the communicator's abort stops its
+        kernels, which would otherwise wait for a peer that is gone or hangs.
+        Gloo fails its pending collectives itself, on their deadline or when a
+        peer's socket closes."""
+        self.aborted = self.aborted or why
+        if self.device.type == "cuda":
+            self.pg.abort()
+
+    def close(self) -> None:
+        """Leave the group without waiting for the other ranks, which may be
+        gone already: an abort of the communicator on the card, a shutdown
+        of gloo's sockets on the CPU."""
+        if self.device.type == "cuda":
+            self.abort("the group is closed")
+            return
+        self.aborted = self.aborted or "the group is closed"
+        shutdown = getattr(self.pg, "shutdown", None)
+        if shutdown is not None:
+            try:
+                shutdown()
+            except Exception:   # noqa: BLE001 — a group whose peer is gone
+                pass
 
 
 def device_info() -> dict:

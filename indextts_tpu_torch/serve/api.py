@@ -282,8 +282,8 @@ def main(argv=None) -> None:
     from indextts_tpu_torch.serve.httpd import add_pool_args, pool_kwargs_from_args
     add_pool_args(p)
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel inference over N cards (not ported: "
-                        "ROADMAP item A16b)")
+                   help="tensor-parallel inference over N cards (the trunk's products "
+                        "split over cuda:0..N-1, one process a card; not with --continuous)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -291,12 +291,9 @@ def main(argv=None) -> None:
 
     eng = None
     if args.warmup:
-        if args.tp and args.tp > 1:
-            raise NotImplementedError("tensor-parallel inference (--tp) is ROADMAP "
-                                      "item A16b")
         eng = IndexTTS(cfg_path=args.config, model_dir=args.model_dir,
                        gpt_path=args.gpt_path,
-                       speaker_info_path=args.speaker_info, device=args.device)
+                       speaker_info_path=args.speaker_info, device=args.device, tp=args.tp)
         eng.warmup(batch_sizes=(1, 4), num_beams=1)
         eng.warmup(batch_sizes=(1, 4), num_beams=3)
     app = create_app(args.config, args.model_dir, args.gpt_path,

@@ -25,7 +25,9 @@ With --continuous, requests join the shared sampling pool, or at
 num_beams=3 (the reference client's default) the shared beam pool
 (serve/beam_pool.py), one per do_sample mode.  The engine loads
 `--gpt_path` and `--speaker_info_path` as the reference does, and
-/model/reload swaps the GPT checkpoint while serving.
+/model/reload swaps the GPT checkpoint while serving.  With --tp N the
+engine serves across N cards (engine.py); the pools are one-card paths, so
+--tp and --continuous exclude each other.
 """
 
 from __future__ import annotations
@@ -171,7 +173,7 @@ class TTSService:
             self._beam_pools = {}
             tts, self._tts = self._tts, None
         if tts is not None:
-            tts.disable_vocode_batching()  # stop + join the coordinator
+            tts.close()  # stop + join the coordinator, and the other ranks under --tp
         for t in threads:
             t.join(timeout)
 
@@ -198,15 +200,17 @@ class TTSService:
 
     def engine(self) -> IndexTTS:
         with self._lock:
+            if self._tts is not None and self._tts.tp_broken:
+                # a rank of the --tp group failed, died or hung: the request
+                # that met it failed; this one gets a new engine
+                broken, self._tts = self._tts, None
+                broken.close()
             if self._tts is None:
-                if self.tp and self.tp > 1:
-                    raise NotImplementedError("tensor-parallel inference (--tp) is ROADMAP "
-                                              "item A16")
                 cfg = self.cfg_path if self.cfg_path and os.path.exists(self.cfg_path) \
                     else None
                 self._tts = IndexTTS(cfg_path=cfg, model_dir=self.model_dir,
                                      device=self.device, gpt_path=self.gpt_path,
-                                     speaker_info_path=self.speaker_info_path)
+                                     speaker_info_path=self.speaker_info_path, tp=self.tp)
             return self._tts
 
     def models(self) -> Dict[str, Any]:
@@ -231,7 +235,9 @@ class TTSService:
             self.gpt_path = resolved
             old_tts, self._tts = self._tts, None
             if old_tts is not None:
-                old_tts.disable_vocode_batching()
+                # its vocode coordinator joined, and under --tp its other
+                # ranks stopped after the call in flight
+                old_tts.close()
             self._pool = None
             self._beam_pools = {}
         return {"status": "reloaded", "gpt_path": resolved}
@@ -668,8 +674,8 @@ def main(argv=None, device: Optional[str] = None) -> None:
                    help="run the decode pool once before accepting "
                         "traffic (--continuous)")
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel inference over N cards (not ported: "
-                        "ROADMAP item A16)")
+                   help="tensor-parallel inference over N cards (the trunk's products "
+                        "split over cuda:0..N-1, one process a card; not with --continuous)")
     args = p.parse_args(argv)
     httpd = serve(args.config, args.model_dir, args.host, args.port,
                   gpt_path=args.gpt_path, speaker_info_path=args.speaker_info_path,

@@ -10,10 +10,10 @@ data-parallel dry run across N ranks.
 losses of a batch of 2 rows (64 text tokens and 128 codes, the second row
 half as long).  Running the module calls ``fn`` once on the device and
 prints the losses, whether they are finite, and the seconds the call took
-as one JSON line.  `dryrun_multichip(n)` checks the data-parallel paths
-(see its docstring) and prints one line as JAX's does; the tensor-parallel
-parts of JAX's dry run are not ported yet (ROADMAP A16b), and its
-flagship AOT check lowers XLA programs, which have no counterpart here.
+as one JSON line.  `dryrun_multichip(n)` checks the data-parallel and
+tensor-parallel paths (see its docstring) and prints one line as JAX's
+does; JAX's flagship AOT check lowers XLA programs, which have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -66,7 +66,11 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> Dict[str, Any]:
     - on the card, for n >= 2, the serving pool group that
       `create_batcher(dp=n)` builds (one pool a card, through K4) gives the
       greedy codes of one pool on cuda:0, every pool takes work on its own
-      card, and K4 launches once per pool step (`pool_group_check`).
+      card, and K4 launches once per pool step (`pool_group_check`);
+    - for n >= 2, the toy trunk's forward and a greedy decode over 2
+      tensor-parallel ranks equal one rank's (`tp_check`): the mean square
+      of the forward (`tp_forward_msq`) and the decode's length
+      (`tp_decode_codes`), as JAX's line prints them.
     Raises where a check fails; prints one line and returns its values."""
     from indextts_tpu_torch.parallel import multihost
 
@@ -85,6 +89,12 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> Dict[str, Any]:
     if not (multihost_ok and loss_equal):
         raise RuntimeError(f"{n_devices}-rank losses {losses} against the one-device loss "
                            f"{loss:.6f} on the same global batch")
+    tp = {"tp_forward_msq": None, "tp_decode_codes": None}
+    if n_devices >= 2:
+        tp = tp_check(2, dev.type)
+        if not tp["tp_ok"]:
+            raise RuntimeError(f"dryrun_multichip({n_devices}): 2 tensor-parallel ranks "
+                               f"against one: {tp}")
     dp_pool_ok = None
     if dev.type == "cuda" and n_devices >= 2:
         pool = _pool_group_agrees(n_devices)
@@ -93,11 +103,77 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> Dict[str, Any]:
             raise RuntimeError(f"dryrun_multichip({n_devices}): the pool group against one "
                                f"pool: {pool}")
     out = {"n": n_devices, "loss": loss, "rank_losses": losses, "loss_equal_1rank": loss_equal,
-           "multihost_ok": multihost_ok, "dp_pool_ok": dp_pool_ok}
+           "multihost_ok": multihost_ok, "dp_pool_ok": dp_pool_ok, **tp}
+    msq = tp["tp_forward_msq"]
     print(f"dryrun_multichip({n_devices}) OK: loss={loss:.4f} loss_equal_1rank={loss_equal} "
-          f"multihost_ok={multihost_ok} tp_forward_msq=not ported (A16b) "
-          f"tp_decode_codes=not ported (A16b) dp_pool_ok={dp_pool_ok}", flush=True)
+          f"multihost_ok={multihost_ok} "
+          f"tp_forward_msq={'n/a' if msq is None else f'{msq:.4f}'} "
+          f"tp_decode_codes={tp['tp_decode_codes']} dp_pool_ok={dp_pool_ok}", flush=True)
     return out
+
+
+def _tp_values(device, group=None) -> Dict[str, Any]:
+    """The toy trunk's forward (mean square) and a greedy 8-code eager
+    decode of the toy UnifiedVoice (its head width is no K2 shape), on this
+    rank's shards under `group` (the whole model without one).  The weights come from torch seeds 3 and 0 on the
+    CPU and the inputs from numpy seed 0: the same on every rank."""
+    from indextts_tpu_torch.models import gpt2
+    from indextts_tpu_torch.parallel import multihost, tp
+
+    cfg = multihost.toy_config()
+    size = gpt2.GPT2Size(cfg.layers, cfg.model_dim, cfg.heads)
+    r, n = (group.rank, group.size) if group is not None else (0, 1)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((2, 6, cfg.model_dim)), dtype=torch.float32,
+                        device=device)
+    trunk = gpt2.init_gpt2_params(size, torch.Generator().manual_seed(3))
+    out = gpt2.forward(tp.to_device(tp.shard_gpt_params(trunk, r, n), device), x, None, size,
+                       group=group)
+    forward_reduces = group.all_reduces if group is not None else 0
+    params = tp.to_device(tp.shard_uv_params(
+        uv.init_params(cfg, torch.Generator().manual_seed(0)), r, n), device)
+    cond = torch.as_tensor(rng.standard_normal((1, cfg.condition_num_latent, cfg.model_dim)),
+                           dtype=torch.float32, device=device)
+    prep = uv.prepare_text_prompt([rng.integers(2, 40, (8,))], cfg.start_text_token,
+                                  cfg.stop_text_token)
+    res = uv.inference_speech(params, cfg, cond, torch.as_tensor(prep.text_tokens, device=device),
+                              torch.as_tensor(prep.attn_text, device=device), None, max_new=8,
+                              do_sample=False, repetition_penalty=1.0,
+                              cache_dtype=torch.float32, use_fused_trunk=False, group=group)
+    return {"msq": float(out.square().mean()), "length": int(res.lengths[0]),
+            "codes": res.codes[0].tolist(), "steps": res.steps,
+            "forward_all_reduces": forward_reduces,
+            "decode_all_reduces": (group.all_reduces - forward_reduces
+                                   if group is not None else 0)}
+
+
+def _tp_rank(device: str) -> Dict[str, Any]:
+    from indextts_tpu_torch.parallel import mesh
+
+    return _tp_values(mesh.local_device(device), mesh.TPGroup.from_world(timeout_s=120.0))
+
+
+def tp_check(n: int = 2, device: str = "cuda") -> Dict[str, Any]:
+    """`_tp_values` over `n` tensor-parallel ranks (one process each:
+    NCCL on cuda:0..n-1, or gloo on the CPU) against one rank in this
+    process: the forward's mean square within 1e-5 relative, the codes
+    equal, and two all-reduces a layer for the forward and for the prefill
+    and every decode step.  Returns rank 0's values and `tp_ok`."""
+    from indextts_tpu_torch.parallel import multihost
+
+    dev = _common.device_of(device)
+    ranks = multihost.run_ranks("indextts_tpu_torch.tools.entry:_tp_rank", n, device=dev.type,
+                                timeout=300.0)
+    one = _tp_values(dev)
+    L = multihost.TOY["layers"]
+    ok = all(abs(r["msq"] - one["msq"]) <= 1e-5 * abs(one["msq"]) and r["codes"] == one["codes"]
+             and r["forward_all_reduces"] == 2 * L
+             and r["decode_all_reduces"] == 2 * L * (1 + r["steps"]) for r in ranks)
+    return {"tp_forward_msq": ranks[0]["msq"], "tp_decode_codes": ranks[0]["length"],
+            "tp_one_rank_msq": one["msq"], "tp_one_rank_codes": one["length"],
+            "tp_all_reduces_by_rank": [(r["forward_all_reduces"], r["decode_all_reduces"])
+                                       for r in ranks],
+            "tp_ok": ok}
 
 
 def pool_group_check(make, texts, n: int) -> Dict[str, Any]:

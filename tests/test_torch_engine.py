@@ -277,7 +277,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     for name in ("engine", "io.checkpoint", "serve.httpd", "train.run", "models.dvae",
                  "data.extract", "train.dvae", "models.legacy_conditioning",
                  "tools.bench_e2e", "verify", "serve.webui", "parallel.mesh",
-                 "parallel.multihost", "tools.entry"):
+                 "parallel.multihost", "parallel.tp", "tools.entry"):
         assert f"indextts_tpu_torch.{name}" in result["walked"], name
 
 

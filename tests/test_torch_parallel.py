@@ -191,5 +191,6 @@ def test_dryrun_multichip_on_two_gloo_ranks(capsys):
     out = entry.dryrun_multichip(2, "cpu")
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("dryrun_multichip(2) OK: loss=")
-    assert "tp_forward_msq=not ported (A16b)" in line and "dp_pool_ok=None" in line
+    assert f"tp_forward_msq={out['tp_forward_msq']:.4f} tp_decode_codes=8" in line
+    assert "dp_pool_ok=None" in line and out["tp_ok"]
     assert out["loss_equal_1rank"] and out["multihost_ok"] and len(out["rank_losses"]) == 2
